@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels at first use and load them by ctypes.
 
-Every ``csrc/*.cu`` file compiles with nvcc into ONE shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds, not
-minutes). The library lands in ``lidar_processing_tpu_torch/build/`` under
+Every ``csrc/*.cu`` file compiles with its own nvcc process, all started
+together, and the objects link into ONE shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds, not minutes).
+The library lands in ``lidar_processing_tpu_torch/build/`` under
 a name carrying a hash of the sources and flags, so a stale library is
 never loaded. Nothing here runs at import time: the CPU tests import every
 module on machines without nvcc or a GPU.
@@ -21,11 +22,15 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+LINK_FLAGS = (*_ARCH, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +38,14 @@ _I = ctypes.c_int
 _ENTRIES = (
     ("min_d2_planar_launch", [_P] * 7 + [_I, _I, _I, _P]),
     ("union_find_launch", [_P] * 4 + [_I, _I, _P]),
+    ("uf_probe_launch", [_P] * 4 + [_I, _I, _P]),
+    ("uf_packed_launch", [_P] * 3 + [_I, _I, _P]),
+    ("uf_packed_noskip_launch", [_P] * 3 + [_I, _I, _P]),
+    ("pair_min_d2_v48_launch", [_P] * 3 + [_I] + [_P] * 5 + [_I, _P]),
+    ("pair_min_d2_v96_launch", [_P] * 3 + [_I] + [_P] * 5 + [_I, _P]),
+    ("gather_sum_launch", [_P, _P, _I, _I, _P, _P, _P]),
+    ("slice_sum_launch", [_P, _P, _I, _I, _I, _P, _P, _P]),
+    ("tile_scale_launch", [_P, _P, _I, _P]),
 )
 
 
@@ -66,8 +79,28 @@ def _digest() -> str:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
+
+
+def _run(procs):
+    """Wait for every (cmd, Popen); raise on the first that failed."""
+    log = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{stdout}{stderr}")
+        log.append(stdout + stderr)
+    return "".join(log)
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
 
 
 @functools.lru_cache(maxsize=1)
@@ -78,17 +111,15 @@ def build() -> BuildInfo:
         return BuildInfo(out, "", 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)      # atomic: a concurrent loader sees all or none
-    return BuildInfo(out, proc.stdout + proc.stderr,
-                     time.perf_counter() - t0)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, f"{src.stem}.o") for src in _sources()]
+        log = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)])
+                    for src, obj in zip(_sources(), objs)])
+        tmp = os.path.join(work, "lib.so")
+        log += _run([_start([nvcc, *LINK_FLAGS, "-o", tmp, *objs])])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    return BuildInfo(out, log, time.perf_counter() - t0)
 
 
 @functools.lru_cache(maxsize=1)
@@ -102,7 +133,27 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check(rc: int, what: str) -> None:
-    """Raise on a nonzero cudaError_t returned by a C entry point."""
+def checked(name: str, *specs) -> torch.device:
+    """Check (what, tensor, dtype, dim) specs — all on the first one's
+    device, contiguous, of that dtype and rank — and return the device."""
+    dev = specs[0][1].device
+    for what, t, dtype, dim in specs:
+        if t.dtype != dtype or t.device != dev or t.dim() != dim:
+            raise ValueError(f"{name}: {what} must be {dim}-D {dtype} on "
+                             f"{dev}, got {t.dim()}-D {t.dtype} on "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    return dev
+
+
+def launch(fn, entry: str, device, *args) -> None:
+    """Call C entry point `entry` with `args` (ints: pointers from
+    data_ptr() and sizes) and the device's current stream; raise on a
+    nonzero cudaError_t, else count the launch on the wrapper `fn`."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(library(), entry)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+        raise RuntimeError(f"{fn.__name__}: CUDA error {rc} at launch")
+    fn.launches += 1

@@ -74,14 +74,8 @@ def min_d2_planar(ux, uy, uz, vx, vy, vz) -> torch.Tensor:
     out = torch.empty((p,), dtype=torch.float32, device=ux.device)
     if p == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(ux.device):
-        stream = torch.cuda.current_stream(ux.device).cuda_stream
-        rc = lib.min_d2_planar_launch(
-            *(t.data_ptr() for t in planes), out.data_ptr(), p, wu, wv,
-            stream)
-    _build.check(rc, "min_d2_planar")
-    min_d2_planar.launches += 1
+    _build.launch(min_d2_planar, "min_d2_planar_launch", ux.device,
+                  *(t.data_ptr() for t in planes), out.data_ptr(), p, wu, wv)
     return out
 
 

@@ -57,37 +57,42 @@ def cc_labels_ref(eu, ev, n_edges, s_cap: int) -> torch.Tensor:
     raise RuntimeError("cc_labels_ref: hooking did not converge")
 
 
+def launch_labels(fn, entry: str, edges, n_edges, s_cap: int
+                  ) -> torch.Tensor:
+    """Check and launch a union-find C entry point taking the edge arrays
+    `edges` ((name, (ec,) int32 tensor) pairs), n_edges (() int32, read on
+    the device, never synced to the host), the labels and (ec, s_cap)."""
+    name, dev = fn.__name__, edges[0][1].device
+    for what, t in (*edges, ("n_edges", n_edges)):
+        if t.dtype != torch.int32 or t.device != dev:
+            raise ValueError(f"{name}: {what} must be int32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    ec = edges[0][1].shape
+    if len(ec) != 1 or any(t.shape != ec for _, t in edges) \
+            or n_edges.numel() != 1:
+        raise ValueError(f"{name}: edge arrays must be (ec,), n_edges ()")
+    if not 0 < s_cap * 4 <= _SMEM_MAX:
+        raise ValueError(f"{name}: s_cap={s_cap} labels do not fit a "
+                         f"block's shared memory ({_SMEM_MAX} B)")
+    out = torch.empty((s_cap,), dtype=torch.int32, device=dev)
+    _build.launch(fn, entry, dev, *(t.data_ptr() for _, t in edges),
+                  n_edges.data_ptr(), out.data_ptr(), ec[0], s_cap)
+    return out
+
+
 def cc_labels(eu, ev, n_edges, s_cap: int) -> torch.Tensor:
     """labels (s_cap,) i32: min node id per component.
 
     eu, ev: (ec,) int32 edge endpoints; n_edges: () int32 tensor on the
-    same device (read on the device, never synced to the host). A CUDA
-    input launches csrc/union_find.cu and counts the launch in
-    ``cc_labels.launches``; a CPU input runs the twin.
+    same device. A CUDA input launches csrc/union_find.cu and counts the
+    launch in ``cc_labels.launches``; a CPU input runs the twin.
     """
     if not eu.is_cuda:
         return cc_labels_ref(eu, ev, n_edges, s_cap)
-    for name, t in (("eu", eu), ("ev", ev), ("n_edges", n_edges)):
-        if t.dtype != torch.int32 or t.device != eu.device:
-            raise ValueError(f"cc_labels: {name} must be int32 on "
-                             f"{eu.device}, got {t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"cc_labels: {name} must be contiguous")
-    if eu.dim() != 1 or ev.shape != eu.shape or n_edges.numel() != 1:
-        raise ValueError("cc_labels: eu/ev must be (ec,) and n_edges ()")
-    if not 0 < s_cap * 4 <= _SMEM_MAX:
-        raise ValueError(f"cc_labels: s_cap={s_cap} labels do not fit a "
-                         f"block's shared memory ({_SMEM_MAX} B)")
-    out = torch.empty((s_cap,), dtype=torch.int32, device=eu.device)
-    lib = _build.library()
-    with torch.cuda.device(eu.device):
-        stream = torch.cuda.current_stream(eu.device).cuda_stream
-        rc = lib.union_find_launch(eu.data_ptr(), ev.data_ptr(),
-                                   n_edges.data_ptr(), out.data_ptr(),
-                                   eu.shape[0], s_cap, stream)
-    _build.check(rc, "cc_labels")
-    cc_labels.launches += 1
-    return out
+    return launch_labels(cc_labels, "union_find_launch",
+                         (("eu", eu), ("ev", ev)), n_edges, s_cap)
 
 
 cc_labels.launches = 0

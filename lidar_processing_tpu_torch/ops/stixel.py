@@ -29,7 +29,7 @@ Where JAX relies on its indexing semantics the port spells them out:
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -226,15 +226,18 @@ def _stacked_windows(sp_xyz, starts, counts, fill: float, cap: int,
 
 
 def _block_min_d2(sp_xyz, u_start, u_count, v_start, v_count,
-                  u_cap: int, v_cap: int):
+                  u_cap: int, v_cap: int, dbg_win=None):
     """Exact min pairwise d² between contiguous point runs (batched).
 
     The u side is fetched in 8-point rows, the v side in 32-point rows;
     the (P, Wu, Wv) block runs in kernels/min_d2.py (the Hopper kernel on
-    CUDA tensors, its plain twin on CPU tensors).
+    CUDA tensors, its plain twin on CPU tensors). A `dbg_win` list gets
+    the u then the v windows' sums (cluster_debug's checksum).
     """
     pu = _stacked_windows(sp_xyz, u_start, u_count, _F_BIG, u_cap, sr=8)
     pv = _stacked_windows(sp_xyz, v_start, v_count, -_F_BIG, v_cap, sr=32)
+    if dbg_win is not None:
+        dbg_win += [sum(w.sum() for w in pu), sum(w.sum() for w in pv)]
     return min_d2_planar(*pu, *pv)
 
 
@@ -250,14 +253,18 @@ class _PairTest(NamedTuple):
 
 
 def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
-                  tiers=_TIERS_SNP, chunk_pairs: int = _CHUNK_PAIRS_SNP):
+                  tiers=_TIERS_SNP, chunk_pairs: int = _CHUNK_PAIRS_SNP,
+                  debug: bool = False):
     """Run tiered block tests; scatter edge verdicts into (n_results,) bool.
 
     Every pair is oriented (u = smaller side) and assigned to the first
     tier that fits; pairs with a side beyond _CHUNK split into _CHUNK-point
     sub-pairs whose verdicts OR into the original slot; sides beyond
     _CHUNK * _CHUNK_GRID points, and tier slot excess, count as overflow.
-    Returns (verdicts, overflow).
+    Returns (verdicts, overflow, dbg): with `debug`, dbg holds the per-tier
+    pair counts + the chunked-pair count ("tiers"), and checksums of the
+    tiers' window starts ("tier_idx") and windows ("windows"), as the JAX
+    package's dict; without it dbg is None and none of that is launched.
     """
     dev = sp_xyz.device
     maxc0 = torch.maximum(pt.u_count, pt.v_count)
@@ -320,6 +327,7 @@ def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
     # active pairs too big for every tier
     overflow = overflow + (tier_id == n_t_all).sum(dtype=_I32)
     tgts = []
+    dbg_idx, dbg_win = ([], []) if debug else (None, None)
     for t, (u_cap, v_cap, slots) in enumerate(tiers):
         n_t = n_in_tier[t]
         overflow = overflow + torch.clamp(n_t - slots, min=0)
@@ -330,14 +338,20 @@ def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
         uc = torch.where(tier_active, usuc & 511, 0)
         vs = torch.where(tier_active, vsvc >> 9, 0)
         vc = torch.where(tier_active, vsvc & 511, 0)
-        mind2 = _block_min_d2(sp_xyz, us, uc, vs, vc, u_cap, v_cap)
+        if debug:
+            dbg_idx.append(us.sum(dtype=_I32) + vs.sum(dtype=_I32))
+        mind2 = _block_min_d2(sp_xyz, us, uc, vs, vc, u_cap, v_cap, dbg_win)
         verdict = tier_active & (mind2 <= r2)
         slot = dynamic_slice(s_slot, starts[t], slots)
         tgts.append(torch.where(verdict, slot, n_results))
     # ONE verdict scatter for all tiers
     out = set_drop(torch.zeros(n_results, dtype=torch.bool, device=dev),
                   torch.cat(tgts), True)
-    return out, overflow
+    dbg = None
+    if debug:
+        dbg = {"tiers": torch.stack(n_in_tier + [n_big]),
+               "tier_idx": sum(dbg_idx), "windows": sum(dbg_win)}
+    return out, overflow, dbg
 
 
 class _SnTable(NamedTuple):
@@ -404,13 +418,16 @@ def _build_supernodes(sp, cells: _CellTable, link1: torch.Tensor,
     return tbl, sn_of_cell
 
 
-def _column_pairs(col_key, n_cols, col_info, pcfg: PipelineConfig):
+def _column_pairs(col_key, n_cols, col_info, pcfg: PipelineConfig,
+                  slots: bool = False):
     """Sort-merge the 12-offset probes against occupied column keys.
 
-    Returns (u_info, v_info, n_pairs, overflow): the `col_info` payloads
-    of both sides of every pair of occupied columns whose xy cells are
-    5x5-window neighbors. The merge key is column_key * 2 + is_probe, so
-    one sort both merges and orders each host before its probes.
+    Returns (u_info, v_info, n_pairs, overflow, u_col, v_col): the
+    `col_info` payloads of both sides of every pair of occupied columns
+    whose xy cells are 5x5-window neighbors, and, with `slots`, the two
+    sides' column-table slots (else None; only cluster_debug asks). The
+    merge key is column_key * 2 + is_probe, so one sort both merges and
+    orders each host before its probes.
     """
     c = col_key.shape[0]
     cp = pcfg.max_column_pairs
@@ -427,7 +444,8 @@ def _column_pairs(col_key, n_cols, col_info, pcfg: PipelineConfig):
     keys = torch.cat([torch.where(col_valid, col_key * 2, _IMAX),
                       *probe_keys])
     infos = col_info.repeat(len(_XY_OFFSETS) + 1)
-    sk2, si2 = sort_by(keys, infos)
+    tags = (_iota(c, dev).repeat(len(_XY_OFFSETS) + 1),) if slots else ()
+    sk2, si2, *st2 = sort_by(keys, infos, *tags)
     # a probe hits when its equal-column run starts with a host; the
     # host's info is broadcast over the run
     kcol = sk2 >> 1
@@ -436,29 +454,50 @@ def _column_pairs(col_key, n_cols, col_info, pcfg: PipelineConfig):
            & seg_broadcast_first(is_host, kcol))
     hinfo_bcast = seg_broadcast_first(torch.where(is_host, si2, 0), kcol)
 
-    _, ui_s, vi_s = sort_by((~hit).to(_I32), si2,
-                            torch.where(hit, hinfo_bcast, 0))
+    if slots:   # each host's slot, broadcast over its run like its info
+        host_bcast = seg_broadcast_first(
+            torch.where(is_host, st2[0], _IMAX), kcol)
+        st2 = [st2[0], torch.where(hit, host_bcast, 0)]
+    _, ui_s, vi_s, *cols = sort_by((~hit).to(_I32), si2,
+                                   torch.where(hit, hinfo_bcast, 0), *st2)
     n_pairs = hit.sum(dtype=_I32)
     ovf = torch.clamp(n_pairs - cp, min=0)
     n_pairs = torch.clamp(n_pairs, max=cp)
     live = _iota(cp, dev) < n_pairs
-    u_info = torch.where(live, ui_s[:cp], 0)
-    v_info = torch.where(live, vi_s[:cp], 0)
-    return u_info, v_info, n_pairs, ovf
+    u_info, v_info, *cols = (torch.where(live, a[:cp], 0)
+                             for a in (ui_s, vi_s, *cols))
+    u_col, v_col = cols if slots else (None, None)
+    return u_info, v_info, n_pairs, ovf, u_col, v_col
+
+
+def _cluster_impl(xyz, valid, cfg: ClusteringConfig, pcfg: PipelineConfig,
+                  debug: bool):
+    n = xyz.shape[0]
+    h = math.sqrt(cfg.distance_squared / 3.0)
+    sp = _sort_points(xyz, valid, pcfg, h)
+    pt_label, num_clusters, overflow, dbg = _cluster_core(sp, cfg, pcfg,
+                                                          debug)
+    pt_valid = sp.key != _IMAX
+    out = set_drop(torch.full((n,), CLUSTER_UNDEFINED, dtype=_I32,
+                             device=xyz.device),
+                  torch.where(pt_valid, sp.orig, n), pt_label)
+    return ClusteringResult(out, num_clusters, overflow), dbg
 
 
 def cluster(xyz: torch.Tensor, valid: torch.Tensor,
             cfg: ClusteringConfig, pcfg: PipelineConfig) -> ClusteringResult:
     """Cluster valid points of a padded cloud (see module docstring)."""
-    n = xyz.shape[0]
-    h = math.sqrt(cfg.distance_squared / 3.0)
-    sp = _sort_points(xyz, valid, pcfg, h)
-    pt_label, num_clusters, overflow = _cluster_core(sp, cfg, pcfg)
-    pt_valid = sp.key != _IMAX
-    out = set_drop(torch.full((n,), CLUSTER_UNDEFINED, dtype=_I32,
-                             device=xyz.device),
-                  torch.where(pt_valid, sp.orig, n), pt_label)
-    return ClusteringResult(out, num_clusters, overflow)
+    return _cluster_impl(xyz, valid, cfg, pcfg, debug=False)[0]
+
+
+def cluster_debug(xyz: torch.Tensor, valid: torch.Tensor,
+                  cfg: ClusteringConfig, pcfg: PipelineConfig
+                  ) -> Tuple[ClusteringResult, Dict[str, object]]:
+    """cluster() plus the dict of internal arrays the JAX package's
+    ``cluster_debug`` returns, key for key (for tests and the probes: its
+    e_u / e_v / n_edges are a real frame's union-find input, and sn, pu,
+    pv, impossible, certain its supernode pair tests)."""
+    return _cluster_impl(xyz, valid, cfg, pcfg, debug=True)
 
 
 class FusedClusterOut(NamedTuple):
@@ -513,7 +552,7 @@ def cluster_fused(xyz_s, obstacle_s, point_valid_s, orig_s, seg_labels_s,
     h = math.sqrt(cfg.distance_squared / 3.0)
     sp, key_full, orig_full, _ = _sort_points_full(
         xyz_s, obstacle_s, point_valid_s, orig_s, seg_labels_s, pcfg, h)
-    pt_label, num_clusters, overflow = _cluster_core(sp, cfg, pcfg)
+    pt_label, num_clusters, overflow, _ = _cluster_core(sp, cfg, pcfg)
 
     pt_valid = sp.key != _IMAX
     cl_plus2 = torch.cat([torch.where(pt_valid, pt_label + 2, 0),
@@ -541,10 +580,13 @@ def _d2(a, b):
 
 
 def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
-                  pcfg: PipelineConfig):
+                  pcfg: PipelineConfig, debug: bool = False):
     """Shared clustering core over a sorted obstacle buffer.
 
-    Returns (pt_label (NO,) labels per sorted row, num_clusters, overflow).
+    Returns (pt_label (NO,) labels per sorted row, num_clusters, overflow,
+    debug dict or None). The dict and the reductions only it needs are
+    built when `debug` asks: in eager PyTorch each would be a launch on
+    the main path (XLA dead-code-eliminated them in the JAX package).
     """
     r2 = cfg.distance_squared
     m = pcfg.max_cells
@@ -579,9 +621,9 @@ def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
                            torch.roll(cells.count, -2)]),
         slot=_iota(2 * m, dev),
         active=torch.cat(intra_tests))
-    intra_verdict, ovf_t = _tiered_exact(
+    intra_verdict, ovf_t, dbg_t1 = _tiered_exact(
         sp.xyz, pt, r2, 2 * m, tiers=_TIERS_INTRA,
-        chunk_pairs=_CHUNK_PAIRS_INTRA)
+        chunk_pairs=_CHUNK_PAIRS_INTRA, debug=debug)
     overflow = overflow + ovf_t
     link1 = intra_link[1] | intra_verdict[:m]
     link2 = intra_link[2] | intra_verdict[m:2 * m]
@@ -624,8 +666,8 @@ def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
     # packed per-column payload (first_sn * 32 + min(count, 31)), carried
     # through the pair merge sorts
     col_info = col_first_sn * 32 + torch.clamp(col_sn_count, max=31)
-    pa, pb, n_cpairs, ovf_cp = _column_pairs(
-        col_key, n_cols, col_info, pcfg)
+    pa, pb, n_cpairs, ovf_cp, u_col, v_col = _column_pairs(
+        col_key, n_cols, col_info, pcfg, slots=debug)
     overflow = overflow + ovf_cp
 
     # ---- expand column pairs to supernode pairs -------------------------
@@ -717,8 +759,8 @@ def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
         u_start=ru[:, 12].to(_I32), u_count=ru[:, 13].to(_I32),
         v_start=rv[:, 12].to(_I32), v_count=rv[:, 13].to(_I32),
         slot=_iota(snp, dev), active=ambiguous)
-    snp_verdict, ovf_t2 = _tiered_exact(sp.xyz, pt2, r2, snp,
-                                           tiers=_TIERS_SNP)
+    snp_verdict, ovf_t2, dbg_t2 = _tiered_exact(sp.xyz, pt2, r2, snp,
+                                                tiers=_TIERS_SNP, debug=debug)
     overflow = overflow + ovf_t2
     snp_edge = pair_certain | snp_verdict
 
@@ -776,4 +818,18 @@ def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
     pt_label = torch.where(pt_valid,
                            seg_broadcast_first(seed_lab, cell_id_pt),
                            CLUSTER_UNDEFINED)
-    return pt_label, num_clusters, overflow
+    if not debug:
+        return pt_label, num_clusters, overflow, None
+    dbg = dict(
+        sp=sp, cells=cells, cell_id_pt=cell_id_pt, link1=link1, link2=link2,
+        intra_tests1=intra_tests[0], intra_tests2=intra_tests[1],
+        sn=sn, sn_of_cell=sn_of_cell, col_first_sn=col_first_sn,
+        col_sn_count=col_sn_count, u_col=u_col, v_col=v_col,
+        n_cpairs=n_cpairs, pu=pu, pv=pv, n_snp=n_snp,
+        n_cls=torch.stack(n_cls), n_edges=n_edges,
+        impossible=impossible, certain=certain, snp_edge=snp_edge,
+        e_u=e_u, e_v=e_v, e_ok=e_ok, labels=labels,
+        tiers1=dbg_t1["tiers"], tiers2=dbg_t2["tiers"],
+        snp_classify=(impossible.sum(dtype=_I32), certain.sum(dtype=_I32)),
+        snp_tier_idx=dbg_t2["tier_idx"], snp_windows=dbg_t2["windows"])
+    return pt_label, num_clusters, overflow, dbg

@@ -57,8 +57,11 @@ class FrameMetrics:
 class ReplayStream:
     """Device-resident cyclic frame replayer with a bounded in-flight window.
 
+    Runs on the card (``device=None`` means ``cuda``, and raises where
+    there is none); the CPU only when the caller passes ``device="cpu"``.
+
     Usage:
-        stream = ReplayStream(config, data_dir, device=torch.device("cuda"))
+        stream = ReplayStream(config, data_dir)
         for out, metrics in stream.run(num_frames=154):
             ...
     """
@@ -67,11 +70,13 @@ class ReplayStream:
                  data_dir: Optional[str] = None,
                  device: Optional[torch.device] = None):
         self.config = config
+        # the card unless the caller names a device: no silent CPU fallback
+        self.device = torch.device(device if device is not None else "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ReplayStream: no CUDA GPU is available; "
+                               "pass device='cpu' to replay on the CPU")
         paths = list_frames(data_dir) if data_dir else list_frames()
         xyz, inten, counts = preload_padded(paths, config.pipeline.max_points)
-        self.device = torch.device(device) if device is not None else (
-            torch.device("cuda") if torch.cuda.is_available()
-            else torch.device("cpu"))
         # intensity rides along on the host for output passthrough
         # (ref: src/dataloader.cpp:106-110 schema carries intensity)
         self.intensity = inten

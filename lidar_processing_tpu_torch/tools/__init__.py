@@ -1,0 +1,7 @@
+"""Probe entry points: the port's counterparts of the repo's tools/probe_*.
+
+Each module has ``make_inputs`` (the JAX probe's seeded numpy draws) and
+``main(device=None, ...)``, runnable as
+``python -m lidar_processing_tpu_torch.tools.<probe>``. They run on the
+card unless the caller names another device (the plain twins then run).
+"""

@@ -105,3 +105,51 @@ def test_cuda_path_matches_cpu_path(cuda, seed):
     pay_gpu = device_frame_step_packed(x.to(cuda), m.to(cuda), CFG).cpu()
     pay_cpu = device_frame_step_packed(x, m, CFG)
     assert torch.equal(pay_gpu, pay_cpu)
+
+
+def test_probe_union_find_kernels_match_twin(cuda):
+    from lidar_processing_tpu_torch.kernels import probe_uf as puf
+    from lidar_processing_tpu_torch.tools import probe_uf, probe_uf2
+    for make in (probe_uf.make_inputs, probe_uf2.make_inputs):
+        eu, ev, ne = make()
+        eu, ev = torch.from_numpy(eu).to(cuda), torch.from_numpy(ev).to(cuda)
+        ne = torch.tensor(ne, dtype=torch.int32, device=cuda)
+        euv = puf.pack_edges(eu, ev)
+        want = tuf.cc_labels_ref(eu, ev, ne, 10240).cpu()
+        before = (puf.uf_probe.launches, puf.uf_packed.launches,
+                  puf.uf_packed_noskip.launches)
+        for got in (puf.uf_probe(eu, ev, ne, 10240),
+                    puf.uf_packed(euv, ne, 10240),
+                    puf.uf_packed_noskip(euv, ne, 10240)):
+            assert torch.equal(got.cpu(), want)
+        assert (puf.uf_probe.launches, puf.uf_packed.launches,
+                puf.uf_packed_noskip.launches) == tuple(b + 1 for b in before)
+
+
+def test_pair_kernels_match_twin(cuda):
+    from lidar_processing_tpu_torch.kernels import probe_pairs as pp
+    from lidar_processing_tpu_torch.tools import probe_mosaic, probe_mosaic3
+    for fn, v_cap, (_, rows, *runs), lanes in (
+            (pp.pair_min_d2_v48, 48, probe_mosaic.make_inputs(), 8),
+            (pp.pair_min_d2_v96, 96, probe_mosaic3.make_inputs(), 128)):
+        planes = pp.row_planes(torch.from_numpy(rows).to(cuda), lanes)
+        runs = [torch.from_numpy(a).to(cuda) for a in runs]
+        got = fn(*planes, *runs).cpu().numpy()
+        want = pp.pair_min_d2_ref(*planes, *runs, v_cap).cpu().numpy()
+        assert _ulp(got, want) <= 4
+
+
+def test_mosaic2_kernels_match_twins(cuda):
+    from lidar_processing_tpu_torch.kernels import probe_mosaic2 as m2
+    from lidar_processing_tpu_torch.tools import probe_mosaic2
+    idx, val = (torch.from_numpy(a).to(cuda)
+                for a in probe_mosaic2.scalar_loads_inputs(16384))
+    assert torch.equal(m2.gather_sum(idx, val), m2.gather_sum_ref(idx, val))
+    off, planes = probe_mosaic2.dyn_slice_inputs(16384)
+    terms = probe_mosaic2.slice_terms(off, planes)
+    off, planes = torch.from_numpy(off).to(cuda), torch.from_numpy(
+        planes).to(cuda)
+    assert abs(float(m2.slice_sum(off, planes)) - terms.sum()) \
+        <= 1e-5 * np.abs(terms).sum()
+    x = torch.from_numpy(probe_mosaic2.accum_store_inputs(16384)).to(cuda)
+    assert torch.equal(m2.tile_scale(x), m2.tile_scale_ref(x))

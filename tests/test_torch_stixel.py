@@ -129,3 +129,73 @@ def test_tier_tables_are_the_jax_packages():
                  "_GX", "_GY", "_GZ"):
         assert getattr(tsx, attr) == getattr(jsx, attr), attr
     assert tsx._F_BIG == float(jsx._F_BIG)
+
+
+def _assert_debug_equal(got, want, path=""):
+    """Integer and bool leaves equal (dtype too), recursing through the
+    NamedTuples and tuples of the debug dict; float leaves bit-identical
+    except the `snp_windows` checksum (see its test)."""
+    if isinstance(want, dict) or hasattr(want, "_asdict"):
+        want = want if isinstance(want, dict) else want._asdict()
+        got = got if isinstance(got, dict) else got._asdict()
+        assert got.keys() == want.keys(), path
+        for k in want:
+            if k != "snp_windows":
+                _assert_debug_equal(got[k], want[k], f"{path}.{k}")
+        return
+    if isinstance(want, tuple):
+        assert isinstance(got, tuple) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_debug_equal(g, w, f"{path}[{i}]")
+        return
+    g, w = got.numpy(), np.asarray(want)
+    assert g.dtype == w.dtype, (path, g.dtype, w.dtype)
+    np.testing.assert_array_equal(g, w, err_msg=path)
+
+
+@pytest.mark.parametrize("name", ["street0", "boxes"])
+def test_cluster_debug_matches_jax(name):
+    """Every entry of the debug dict equals the JAX package's, except the
+    f32 window checksum `snp_windows`: a sum of 6.8 M lanes, nearly all
+    ±1e9 fills, that cancel to ~-3.3e15. It is held to 2e-5 of the lane
+    bound (lanes x 1e9, about its sum of magnitudes). On street0 the
+    port's sum is 4e-7 of that bound from the float64 sum and XLA's CPU
+    reduction 5.1e-6: its error grows with the terms per accumulator."""
+    (x, m), _ = _sorted_inputs(name, CFG)
+    seg = jseg.gpf_segment(jnp.asarray(x), jnp.asarray(m), CFG.segmentation)
+    obst = np.asarray(m & (np.asarray(seg.labels) == SEG_OBSTACLE))
+    want_res, want = jsx.cluster_debug(jnp.asarray(x), jnp.asarray(obst),
+                                       CFG.clustering, CFG.pipeline)
+    tcfg = config_from_jax(CFG)
+    got_res, got = tsx.cluster_debug(torch.from_numpy(x),
+                                     torch.from_numpy(obst),
+                                     tcfg.clustering, tcfg.pipeline)
+    _assert_tree_equal(got_res, want_res)
+    _assert_debug_equal(got, want)
+    lanes = 3 * sum(s * (u + 8 + v + 32) for u, v, s in tsx._TIERS_SNP)
+    g, w = float(got["snp_windows"]), float(want["snp_windows"])
+    assert got["snp_windows"].dtype == torch.float32
+    assert abs(g - w) <= 2e-5 * lanes * tsx._F_BIG, (g, w)
+    assert int(got["n_edges"]) > 0 and int(got_res.num_clusters) > 3
+
+
+def test_cluster_fused_builds_no_debug_dict(monkeypatch):
+    """cluster_fused asks _cluster_core for no dict (so the main path
+    launches none of its reductions) and still equals the JAX package."""
+    calls = []
+    core = tsx._cluster_core
+
+    def spy(*args, **kwargs):
+        out = core(*args, **kwargs)
+        calls.append((kwargs.get("debug", args[3] if len(args) > 3
+                                 else False), out[3]))
+        return out
+
+    monkeypatch.setattr(tsx, "_cluster_core", spy)
+    _, args = _sorted_inputs("street1", CFG)
+    want = jsx.cluster_fused(*map(jnp.asarray, args), CFG.clustering,
+                             CFG.pipeline)
+    tcfg = config_from_jax(CFG)
+    got = tsx.cluster_fused(*to_torch(args), tcfg.clustering, tcfg.pipeline)
+    _assert_tree_equal(got, want)
+    assert calls == [(False, None)]

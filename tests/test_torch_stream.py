@@ -69,6 +69,18 @@ def test_replay_stream_matches_jax_stream(tmp_path):
                                                           stage_timing=True))
 
 
+def test_replay_stream_without_a_device_needs_a_gpu(tmp_path, monkeypatch):
+    """device=None means the card: with no GPU the stream raises instead
+    of quietly replaying on the CPU."""
+    xyz, inten = street_scene(0, "small")
+    tpcd.write_pcd_xyzi(tmp_path / "000000.pcd", xyz, inten)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ReplayStream(TCFG, data_dir=str(tmp_path))
+    stream = ReplayStream(TCFG, data_dir=str(tmp_path), device="cpu")
+    assert stream.xyz.device.type == "cpu"
+
+
 def test_full_size_scene_fits_the_jax_caps():
     """The full-size synthetic scene is KITTI-like (98k-124k points, about
     35-45% obstacles, 300-600 clusters) and the JAX package runs it at
