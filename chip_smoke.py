@@ -13,31 +13,38 @@ Phases (any failure raises, so the script never exits 0 after one):
      step: 8 full-size synthetic street scenes (seeds 0-7) written as PCD
      files, replayed through ReplayStream on the card; every frame must
      report overflow 0, one outline per cluster and a cluster count in the
-     scene's target range, and both kernels must have been launched the
-     expected number of times by that run;
+     scene's target range, and the run must have launched tier_min_d2
+     twice a step (one per tier table), union_find once and min_d2 never;
   4. CUDA vs CPU: frame 0's cluster_fused on the card (kernels) and on the
      CPU (twins) from the same sorted inputs must agree bit for bit, and
      the two segmentations within max(2, n // 1000) labels; a small
      scene's cluster labels on the card equal an independent exact
      radius-graph connected-components reference (scipy);
   5. no host syncs inside one device step (torch's sync debug mode);
-  6. per-frame device / host / end-to-end times;
-  7. kernels vs their plain PyTorch twins on the card, at the shapes the
-     main path gives them: min_d2 at all 12 stixel tier shapes (<= 4 ULP),
-     union-find on random graphs (equal), with CUDA-event times of both,
+  6. per-frame device / host / end-to-end times, and torch.profiler's
+     count of CUDA kernels in one device step;
+  7. synthetic frame 0 at DEFAULT_CONFIG through cluster_debug, recording
+     the two tier_min_d2 calls of its step and its edge list;
+  8. kernels vs their plain PyTorch twins on the card, at the shapes the
+     main path gives them: tier_min_d2 on frame 0's two calls and on
+     crafted descriptor sets at both shipped tier tables (bit for bit,
+     and equal to the old design, _stacked_windows + min_d2 per tier);
+     union_find on random and adversarial graphs and frame 0's edges
+     (equal; beside it uf_serial, the serial design it replaced); min_d2
+     at all 12 stixel tier shapes (<= 4 ULP); with CUDA-event times,
      torch.profiler's device time, the PyTorch call that computes the
      same function (where there is one) and the least time the card could
      take (bound);
-  8. probes: the kernels of the TPU probes in tools/ against their twins
+  9. probes: the kernels of the TPU probes in tools/ against their twins
      at the JAX probes' own sizes (union-find variants equal, pair minima
      <= 4 ULP, mosaic2 A and C equal, B within 1e-5 of the sum of |terms|),
-     timed the same way; then synthetic frame 0 at DEFAULT_CONFIG through
-     cluster_debug: its edge list through every union-find variant and the
-     twin (all equal), and its small ambiguous supernode pairs through the
-     pair kernel and through _stacked_windows + min_d2_planar (bit for
-     bit), both timed; then the probe entry points (tools/probe_*.main)
-     with the launch counts reset: every probe kernel must have run;
-  9. no jax imported.
+     timed the same way; frame 0's edge list through every union-find
+     variant and the twin (all equal), and its small ambiguous supernode
+     pairs through the pair kernel and through _stacked_windows +
+     min_d2_planar (bit for bit), both timed; then the probe entry points
+     (tools/probe_*.main) with the launch counts reset: every probe kernel
+     must have run;
+  10. no jax imported.
 
 Prints the kernels' JSON record, the card's name and power limit, and, as
 its last line, {"ok": true, "device": {...}}.
@@ -226,37 +233,153 @@ def random_graph(rng, s_cap, ec, n_edges, device):
                                         device=device)
 
 
-def check_union_find(device):
+def check_union_find(device, frame_edges):
+    """union_find against the twin on random graphs, on the contract's
+    adversarial graphs and on frame 0's edge list (all equal); timed on
+    frame 0's edges and on a 20k-edge graph beside uf_serial, the serial
+    design it replaced, the twin and the bound."""
+    import torch
+    from lidar_processing_tpu_torch.kernels.probe_uf import uf_serial
     from lidar_processing_tpu_torch.kernels.union_find import (cc_labels,
                                                                cc_labels_ref)
+    from lidar_processing_tpu_torch.tools.kernel_cases import (uf_graphs,
+                                                               uf_oracle)
     rng = np.random.default_rng(1)
     ec = 32768
     max_abs = 0
+
+    def check(name, g, s_cap, oracle=None):
+        nonlocal max_abs
+        got = cc_labels(*g, s_cap).cpu().numpy()
+        want = cc_labels_ref(*g, s_cap).cpu().numpy()
+        bad = got.shape != (s_cap,) or not np.array_equal(got, want)
+        if bad or (oracle is not None and not np.array_equal(got, oracle)):
+            raise AssertionError(f"union_find {name}: "
+                                 f"{np.sum(got != want)} differ")
+        max_abs = max(max_abs, int(np.abs(got - want).max(initial=0)))
+        timed = ""
+        if oracle is not None:   # a contract graph: its device time too
+            timed = ", device " + fmt_ms(device_ms(lambda: cc_labels(*g,
+                                                                  s_cap)))
+        log(f"union_find {name}: equal ({len(np.unique(got))} components"
+            f"{timed})")
+
     for s_cap, n_edges in ((128, 0), (128, 300), (2048, 4000),
                            (2048, 32768), (10240, 0), (10240, 20000),
                            (10240, 32768)):
-        g = random_graph(rng, s_cap, ec, n_edges, device)
-        got = cc_labels(*g, s_cap).cpu().numpy()
-        want = cc_labels_ref(*g, s_cap).cpu().numpy()
-        if got.shape != (s_cap,) or not np.array_equal(got, want):
-            raise AssertionError(f"union_find s_cap={s_cap} n_edges="
-                                 f"{n_edges}: {np.sum(got != want)} differ")
-        max_abs = max(max_abs, int(np.abs(got - want).max(initial=0)))
-        log(f"union_find s_cap={s_cap:5d} n_edges={n_edges:5d}: equal "
-            f"({len(np.unique(got))} components)")
+        check(f"random s_cap={s_cap} n_edges={n_edges}",
+              random_graph(rng, s_cap, ec, n_edges, device), s_cap)
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    for name, eu, ev, ne in uf_graphs():
+        check(name, (to(eu), to(ev), torch.tensor(ne, dtype=torch.int32,
+                                                  device=device)),
+              10240, uf_oracle(eu, ev, ne, 10240))
+    check("frame 0 edges", frame_edges, 10240)
+
     # timed at the main path's shape: s_cap = max_supernodes, 32768 edge
-    # slots, ~20k live edges (the KITTI maximum the caps were sized for)
-    g = random_graph(rng, 10240, ec, 20000, device)
-    ms = cuda_ms(lambda: cc_labels(*g, 10240))
-    plain_ms = cuda_ms(lambda: cc_labels_ref(*g, 10240))
-    b = uf_bound(20000, 8, 10240)
-    log(f"union_find (10240 nodes, 20000 edges): kernel {ms:.4f} ms "
-        f"(device {fmt_ms(device_ms(lambda: cc_labels(*g, 10240)))}), "
-        f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.6f} ms")
+    # slots; frame 0's edges and ~20k live edges (the KITTI maximum the
+    # caps were sized for)
+    g20k = random_graph(rng, 10240, ec, 20000, device)
+    rows = {}
+    for gname, g in (("frame 0", frame_edges), ("20k", g20k)):
+        n_e = int(g[2])
+        t = {name: (cuda_ms(lambda: fn(*g, 10240)),
+                    device_ms(lambda: fn(*g, 10240)))
+             for name, fn in (("kernel", cc_labels), ("uf_serial", uf_serial),
+                              ("plain", cc_labels_ref))}
+        b = uf_bound(n_e, 8, 10240)
+        rows[gname] = (t, b)
+        log(f"union_find on {gname} ({n_e} edges, 10240 nodes): "
+            + ", ".join(f"{k} {ms:.4f} ms (device {fmt_ms(d)})"
+                        for k, (ms, d) in t.items())
+            + f", bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+    t, b = rows["20k"]
     return {"name": "union_find", "source": f"{CSRC}/union_find.cu",
             "replaces": "lidar_processing_tpu/kernels/union_find.py:31",
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": None}
+            "max_abs_err": max_abs, "ms": t["kernel"][0],
+            "plain_ms": t["plain"][0], **b, "library_ms": None}
+
+
+def tier_work(args, tiers):
+    """(bytes, FP32 operations) one tier pass needs on these inputs: 12 B
+    per point of each active slot's two runs (counts clamped to the caps),
+    the active descriptors (8 B a slot), the starts and counts, 4 B out
+    per slot, and 9 operations per real point pair."""
+    _, usuc, vsvc, starts, n_in = (a.cpu().numpy().astype(np.int64)
+                                   for a in args[:5])
+    n_bytes, ops = 8 * len(tiers) + 4 * sum(s for *_, s in tiers), 0
+    for t, (u_cap, v_cap, slots) in enumerate(tiers):
+        lo = min(max(starts[t], 0), len(usuc) - slots)
+        act = slice(lo, lo + min(n_in[t], slots))
+        un = np.minimum(usuc[act] & 511, u_cap)
+        vn = np.minimum(vsvc[act] & 511, v_cap)
+        n_bytes += 12 * int(un.sum() + vn.sum()) + 8 * len(un)
+        ops += 9 * int((un * vn).sum())
+    return n_bytes, ops
+
+
+def check_tier_min_d2(device, frame_calls):
+    """tier_min_d2 against its twin, bit for bit, on frame 0's two calls
+    and on crafted descriptor sets at both shipped tier tables; and
+    against the old design (each tier's windows through min_d2). Timed on
+    frame 0's calls (the main path's inputs)."""
+    import torch
+    from lidar_processing_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from lidar_processing_tpu_torch.kernels.min_d2 import min_d2_planar
+    from lidar_processing_tpu_torch.kernels.tier_min_d2 import (
+        tier_min_d2, tier_min_d2_ref, tier_slices, tier_windows)
+    from lidar_processing_tpu_torch.ops import stixel as sx
+    from lidar_processing_tpu_torch.tools.kernel_cases import tier_cases
+
+    def old_design(*args):
+        return torch.cat([min_d2_planar(*pu, *pv) for pu, pv in tier_windows(
+            args[0], tier_slices(*args[1:]), args[-1])])
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    no = cfg.pipeline.max_obstacle_points
+    sets = [(f"frame 0 {name}", args) for name, args in
+            zip(("intra", "snp"), frame_calls)]
+    for table, tiers in (("intra", sx._TIERS_INTRA), ("snp", sx._TIERS_SNP)):
+        for name, *case in tier_cases(tiers, n=no, seed=len(table)):
+            sets.append((f"{table} {name}", (*(torch.from_numpy(a).to(device)
+                                               for a in case), tiers)))
+    for name, args in sets:
+        got, want = tier_min_d2(*args), tier_min_d2_ref(*args)
+        if got.shape != want.shape or not same(got, want):
+            raise AssertionError(f"tier_min_d2 {name}: "
+                                 f"{int((got != want).sum())} slots differ "
+                                 f"from the twin")
+        if not same(old_design(*args), got):
+            raise AssertionError(f"tier_min_d2 {name}: differs from "
+                                 f"windows + min_d2")
+        log(f"tier_min_d2 {name}: {got.numel()} slots, bit-identical to the "
+            f"twin and to windows + min_d2")
+    total = {"ms": 0.0, "plain_ms": 0.0}
+    work = np.zeros(2)
+    for name, args in sets[:2]:
+        t = {k: (cuda_ms(lambda: fn(*args)), device_ms(lambda: fn(*args)))
+             for k, fn in (("kernel", tier_min_d2),
+                           ("windows + min_d2", old_design),
+                           ("plain", tier_min_d2_ref))}
+        w = tier_work(args, args[-1])
+        b = bound(*w)
+        work += w
+        total["ms"] += t["kernel"][0]
+        total["plain_ms"] += t["plain"][0]
+        log(f"tier_min_d2 {name} ({int(args[4].sum())} pairs in tiers): "
+            + ", ".join(f"{k} {ms:.4f} ms (device {fmt_ms(d)})"
+                        for k, (ms, d) in t.items())
+            + f", bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+    total.update(bound(*work))
+    log(f"tier_min_d2 per frame (2 calls): kernel {total['ms']:.4f} ms, "
+        f"plain {total['plain_ms']:.4f} ms, bound {total['bound_ms']:.6f} ms "
+        f"({total['bound_by']}; {int(work[0])} B, {int(work[1])} FP32 "
+        f"operations)")
+    return {"name": "tier_min_d2", "source": f"{CSRC}/tier_min_d2.cu",
+            "replaces": "lidar_processing_tpu/kernels/min_d2.py:48",
+            "max_abs_err": 0.0, **total, "library_ms": None}
 
 
 def uf_bound(n_edges: int, edge_bytes: int, s_cap: int) -> dict:
@@ -314,6 +437,8 @@ def check_probe_kernels(device) -> list:
     euv = puf.pack_edges(g2[0], g2[1])
     for name, fn, args, twin_args, replaces, ebytes, n_e in (
             ("uf_probe", puf.uf_probe, g, g, "tools/probe_uf.py:26", 8, ne),
+            ("uf_serial", puf.uf_serial, g2, g2, "tools/probe_uf2.py:50", 8,
+             ne2),
             ("uf_packed", puf.uf_packed, (euv, g2[2]), g2,
              "tools/probe_uf2.py:77", 4, ne2),
             ("uf_packed_noskip", puf.uf_packed_noskip, (euv, g2[2]), g2,
@@ -389,21 +514,13 @@ def check_probe_kernels(device) -> list:
     return records
 
 
-def check_real_frame(device):
-    """Synthetic frame 0 at DEFAULT_CONFIG through cluster_debug: its
-    supernode edge list through every union-find variant (all equal to
-    the twin) and its ambiguous supernode pairs with u <= 8 and v <= 96
-    points (u the smaller side) through the pair kernel and through the
-    clustering path's _stacked_windows + min_d2_planar (bit for bit).
-    Returns the edge list for the probe path."""
+def frame0_debug(device):
+    """Synthetic frame 0 at DEFAULT_CONFIG through cluster_debug on the
+    card, recording the arguments of its two tier_min_d2 calls (intra,
+    then supernode pairs). Returns (result, debug dict, calls)."""
     import torch
     from lidar_processing_tpu_torch.config import DEFAULT_CONFIG as cfg
     from lidar_processing_tpu_torch.io.synthetic import pad_frame, street_scene
-    from lidar_processing_tpu_torch.kernels import probe_uf as puf
-    from lidar_processing_tpu_torch.kernels.min_d2 import min_d2_planar
-    from lidar_processing_tpu_torch.kernels.probe_pairs import pair_min_d2_v96
-    from lidar_processing_tpu_torch.kernels.union_find import (cc_labels,
-                                                               cc_labels_ref)
     from lidar_processing_tpu_torch.ops import stixel as sx
     from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
     from lidar_processing_tpu_torch.types import SEG_OBSTACLE
@@ -412,14 +529,47 @@ def check_real_frame(device):
     x, m = (torch.from_numpy(a).to(device)
             for a in pad_frame(xyz, cfg.pipeline.max_points))
     seg = gpf_segment(x, m, cfg.segmentation)
-    res, dbg = sx.cluster_debug(x, m & (seg.labels == SEG_OBSTACLE),
-                                cfg.clustering, cfg.pipeline)
+    calls, kernel = [], sx.tier_min_d2
+
+    def recording(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    sx.tier_min_d2 = recording
+    try:
+        res, dbg = sx.cluster_debug(x, m & (seg.labels == SEG_OBSTACLE),
+                                    cfg.clustering, cfg.pipeline)
+    finally:
+        sx.tier_min_d2 = kernel
     if int(res.overflow) != 0:
         raise AssertionError(f"frame 0 overflow {int(res.overflow)}")
+    if len(calls) != 2:
+        raise AssertionError(f"frame 0: {len(calls)} tier passes, not 2")
+    return res, dbg, calls
+
+
+def check_real_frame(device, res, dbg):
+    """Frame 0's cluster_debug output: its supernode edge list through
+    every union-find variant (all equal to the twin) and its ambiguous
+    supernode pairs with u <= 8 and v <= 96 points (u the smaller side)
+    through the pair kernel and through the clustering path's old
+    _stacked_windows + min_d2_planar (bit for bit). Returns the edge list
+    for the probe path."""
+    import torch
+    from lidar_processing_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from lidar_processing_tpu_torch.kernels import probe_uf as puf
+    from lidar_processing_tpu_torch.kernels.min_d2 import min_d2_planar
+    from lidar_processing_tpu_torch.kernels.probe_pairs import pair_min_d2_v96
+    from lidar_processing_tpu_torch.kernels.tier_min_d2 import (
+        F_BIG, _stacked_windows)
+    from lidar_processing_tpu_torch.kernels.union_find import (cc_labels,
+                                                               cc_labels_ref)
+
     s = cfg.pipeline.max_supernodes
     eu, ev, ne = dbg["e_u"], dbg["e_v"], dbg["n_edges"]
     euv = puf.pack_edges(eu, ev)
-    variants = (("v0 union_find", lambda: cc_labels(eu, ev, ne, s)),
+    variants = (("union_find", lambda: cc_labels(eu, ev, ne, s)),
+                ("v0 uf_serial", lambda: puf.uf_serial(eu, ev, ne, s)),
                 ("v1 uf_packed", lambda: puf.uf_packed(euv, ne, s)),
                 ("v2 uf_packed_noskip", lambda: puf.uf_packed_noskip(euv, ne,
                                                                      s)),
@@ -452,10 +602,8 @@ def check_real_frame(device):
     planes = tuple(sp_xyz.T.contiguous())
 
     def windows():
-        pu_w = sx._stacked_windows(sp_xyz, runs[0], runs[1], sx._F_BIG, 8,
-                                   sr=8)
-        pv_w = sx._stacked_windows(sp_xyz, runs[2], runs[3], -sx._F_BIG, 96,
-                                   sr=32)
+        pu_w = _stacked_windows(sp_xyz, runs[0], runs[1], F_BIG, 8, sr=8)
+        pv_w = _stacked_windows(sp_xyz, runs[2], runs[3], -F_BIG, 96, sr=32)
         return min_d2_planar(*pu_w, *pv_w)
 
     got = pair_min_d2_v96(*planes, *runs)
@@ -476,7 +624,7 @@ def check_real_frame(device):
     return eu, ev, ne
 
 
-PROBE_KERNELS = ("uf_probe", "uf_packed", "uf_packed_noskip",
+PROBE_KERNELS = ("uf_probe", "uf_serial", "uf_packed", "uf_packed_noskip",
                  "pair_min_d2_v48", "pair_min_d2_v96", "gather_sum",
                  "slice_sum", "tile_scale")
 
@@ -492,7 +640,7 @@ def run_probe_path(device, edges) -> dict:
                                                   probe_mosaic3, probe_uf,
                                                   probe_uf2)
     wrappers = {w.__name__: w for w in (
-        puf.uf_probe, puf.uf_packed, puf.uf_packed_noskip,
+        puf.uf_probe, puf.uf_serial, puf.uf_packed, puf.uf_packed_noskip,
         pp.pair_min_d2_v48, pp.pair_min_d2_v96, m2.gather_sum, m2.slice_sum,
         m2.tile_scale)}
     for w in wrappers.values():
@@ -532,6 +680,7 @@ def run_main_path(tmp: Path, device):
     import torch
     from lidar_processing_tpu_torch.config import DEFAULT_CONFIG
     from lidar_processing_tpu_torch.kernels.min_d2 import min_d2_planar
+    from lidar_processing_tpu_torch.kernels.tier_min_d2 import tier_min_d2
     from lidar_processing_tpu_torch.kernels.union_find import cc_labels
     from lidar_processing_tpu_torch.runtime.stream import ReplayStream
 
@@ -541,14 +690,15 @@ def run_main_path(tmp: Path, device):
     stream.warmup()
     warm_s = time.perf_counter() - t0
 
-    min_d2_planar.launches = 0
-    cc_labels.launches = 0
+    kernels = {"tier_min_d2": tier_min_d2, "union_find": cc_labels,
+               "min_d2": min_d2_planar}
+    for fn in kernels.values():
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     results = list(stream.run(N_FRAMES))  # run() warms up with one step
     run_s = time.perf_counter() - t0
-    launches = {"min_d2": min_d2_planar.launches,
-                "union_find": cc_labels.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
     e2e_ms = (run_s - warm_s) * 1e3 / N_FRAMES
 
     lo, hi = CLUSTER_RANGE
@@ -571,7 +721,7 @@ def run_main_path(tmp: Path, device):
                 for o in out.outlines):
             raise AssertionError(f"frame {m.frame_id}: malformed outputs")
     steps = N_FRAMES + WARMUP_FRAMES
-    want = {"min_d2": 12 * steps, "union_find": steps}
+    want = {"tier_min_d2": 2 * steps, "union_find": steps, "min_d2": 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
     log(f"main path: {N_FRAMES} frames + {WARMUP_FRAMES} warmup through "
@@ -708,6 +858,20 @@ def time_frames(stream, results, device):
     return statistics.median(dev_ms), statistics.median(host_ms)
 
 
+def log_step_kernels(stream) -> dict:
+    """torch.profiler's count of the CUDA kernels in one device step of
+    frame 0, and their summed device time."""
+    from lidar_processing_tpu_torch.runtime.pipeline import (
+        device_frame_step_packed)
+    from lidar_processing_tpu_torch.tools.step_bench import step_kernels
+    out = step_kernels(lambda: device_frame_step_packed(
+        stream.xyz[0], stream.mask[0], stream.config))
+    log(f"one device step (frame 0, torch.profiler): {out['kernels']} CUDA "
+        f"kernels, {out['copies']} copies and fills, "
+        f"{out['busy_ms']:.3f} ms of device time")
+    return out
+
+
 def main() -> None:
     device, smi = check_device()
     build_s = build_kernels()
@@ -724,9 +888,14 @@ def main() -> None:
     log(f"per frame ({smi}): device p50 {dev_ms:.3f} ms, host p50 "
         f"{host_ms:.1f} ms, end to end {e2e_ms:.1f} ms "
         f"(build {build_s:.1f} s)")
-    kernels = [check_min_d2(device), check_union_find(device)]
+    log_step_kernels(stream)
+    res, dbg, tier_calls = frame0_debug(device)
+    edges = (dbg["e_u"], dbg["e_v"], dbg["n_edges"])
+    kernels = [check_tier_min_d2(device, tier_calls),
+               check_union_find(device, edges), check_min_d2(device)]
     kernels += check_probe_kernels(device)
-    probe_launches = run_probe_path(device, check_real_frame(device))
+    probe_launches = run_probe_path(device, check_real_frame(device, res,
+                                                             dbg))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

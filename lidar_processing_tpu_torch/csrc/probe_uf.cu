@@ -1,10 +1,12 @@
 // Serial union-find variants in shared memory: the probe kernels.
 //
 // Replaces the Pallas SMEM kernels of tools/probe_uf.py (`kernel`, the
-// plain union-by-min probe) and of tools/probe_uf2.py (`k_v1`, packed
-// u<<15|v edges; `k_v2`, packed edges without the equal-parent skip).
-// probe_uf2's `k_v0` is the production kernel, csrc/union_find.cu, and is
-// not repeated here. Contract, as union_find.cu's:
+// plain union-by-min probe) and of tools/probe_uf2.py (`k_v0`, the TPU
+// production kernel's design: separate edge arrays, the equal-parent skip
+// and the root cache; `k_v1`, packed u<<15|v edges; `k_v2`, packed edges
+// without the equal-parent skip). The main path's csrc/union_find.cu is a
+// parallel hook-and-compress kernel; k_v0 keeps the serial design here so
+// the probe still measures it. Contract, as union_find.cu's:
 //   out[i] = the smallest node id in i's connected component over the
 //            first n_edges edges.
 // That labelling is canonical, so every variant equals the PyTorch twin
@@ -111,6 +113,13 @@ extern "C" int uf_probe_launch(const int* eu, const int* ev,
                                int s_cap, void* stream) {
   return launch<false, false, false>(eu, ev, n_edges, out, ec, s_cap,
                                      stream);
+}
+
+// tools/probe_uf2.py k_v0: separate arrays, skip and root cache
+extern "C" int uf_serial_launch(const int* eu, const int* ev,
+                                const int* n_edges, int* out, int ec,
+                                int s_cap, void* stream) {
+  return launch<false, true, true>(eu, ev, n_edges, out, ec, s_cap, stream);
 }
 
 // tools/probe_uf2.py k_v1: packed edges, skip and root cache

@@ -1,4 +1,5 @@
-// Serial union-find over a compacted edge list, in shared memory.
+// Connected components over a compacted edge list: parallel hook and
+// compress in shared memory.
 //
 // Replaces lidar_processing_tpu/kernels/union_find.py::_uf_kernel (the
 // Pallas SMEM kernel launched by cc_labels_pallas). Contract:
@@ -8,22 +9,31 @@
 // algorithm gives the same array; the PyTorch twin
 // (kernels/union_find.py::cc_labels_ref) is a hook-and-jump fixpoint.
 //
-// What bounds it on an H100: a chain of dependent shared-memory loads
-// (~30 cycles each) on one thread — latency, not bandwidth or flops. The
-// 10240 labels (40 KB) and a frame's ~20k edges would fit an SM's
-// shared memory many times over; the work is inherently serial in this
-// formulation.
+// What bounds it on an H100: chains of dependent shared-memory loads
+// (latency), not bandwidth or flops: the 10240 labels (40 KB) and a
+// frame's ~20k edges (~160 KB) are read once. The TPU kernel ran the union
+// pass on one scalar core; on one CUDA thread that chain costs ~0.65 ms a
+// frame (csrc/probe_uf.cu keeps that design as uf_serial_launch).
 //
-// Design (simple and exact first, as on the TPU): one block; the labels
-// live in dynamic shared memory; the block's threads initialise them in
-// parallel; ONE thread runs the union pass over the edges with path
-// halving, the larger root hooked under the smaller (so every parent id
-// is smaller than its child's and each root is its component's min id),
-// the equal-parent skip, and the root cache for a repeated u (the edge
-// list arrives sorted by u). The flatten pass then runs on all threads:
-// each walks read-only to its root, so no thread writes what another
-// reads. n_edges is read from device memory, so the host never waits.
-// A parallel hook-and-compress (ECL-CC) version is later work.
+// Design: ECL-CC's hook and compress (Jaiganesh & Burtscher, HPDC 2018),
+// in one block of 1024 threads with the labels in dynamic shared memory.
+//   1. init: lab[i] = i; then, over every edge in parallel,
+//      atomicMin(&lab[hi], lo): each node starts under its smallest
+//      neighbour, ECL-CC's initialisation, with no chain of loads;
+//   2. hook: thread t takes a contiguous chunk of ceil(ne / 1024) edges;
+//      for each it finds both roots and, while they differ, hooks the
+//      larger root under the smaller with atomicCAS(&lab[hi], hi, lo),
+//      finding the roots again when the CAS loses a race;
+//   3. compress: out[i] = root(i), read-only.
+// Every write points a node at a smaller id of its own component (the
+// init, a hook onto another root, or find's intermediate pointer jumping
+// onto an ancestor), so lab[x] <= x always holds, parents lead to a root,
+// and a root stays the smallest id of its tree: when the hooks are done
+// each component is one tree whose root is its minimum, whatever the
+// order in which the threads ran. The edge list arrives sorted by u, so
+// chunks keep the 32 lanes of a warp on distant parts of the graph; with
+// edge e on thread e mod 1024, as ECL-CC assigns them, a warp's lanes take
+// 32 neighbouring edges and hook the same few roots against each other.
 
 #include <cuda_runtime.h>
 
@@ -31,13 +41,21 @@ namespace {
 
 constexpr int kThreads = 1024;
 
-__device__ __forceinline__ int find_halving(int* lab, int x) {
-  while (lab[x] != x) {
-    const int g = lab[lab[x]];
-    lab[x] = g;  // path halving
-    x = g;
+// x's root, pointing each node on the way at its grandparent (ECL-CC's
+// intermediate pointer jumping). The walk stops at the node whose label
+// is its own id; lab[x] <= x makes the loop test a single comparison.
+__device__ __forceinline__ int find_root(volatile int* lab, int x) {
+  int cur = lab[x];
+  if (cur != x) {
+    int prev = x;
+    int next;
+    while (cur > (next = lab[cur])) {
+      lab[prev] = next;
+      prev = cur;
+      cur = next;
+    }
   }
-  return x;
+  return cur;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -45,28 +63,32 @@ union_find_kernel(const int* __restrict__ eu, const int* __restrict__ ev,
                   const int* __restrict__ n_edges, int* __restrict__ out,
                   int ec, int s_cap) {
   extern __shared__ int lab[];
+  volatile int* vlab = lab;
   for (int i = threadIdx.x; i < s_cap; i += kThreads) lab[i] = i;
   __syncthreads();
 
-  if (threadIdx.x == 0) {
-    int ne = *n_edges;
-    ne = ne < 0 ? 0 : (ne > ec ? ec : ne);
-    int pu = -1;   // previous edge's u
-    int pru = 0;   // a root on u's path at that time
-    for (int e = 0; e < ne; ++e) {
-      // out-of-range ids clamp, as a gather does in the XLA twin
-      const int a = min(max(eu[e], 0), s_cap - 1);
-      const int b = min(max(ev[e], 0), s_cap - 1);
-      const int pa = lab[a];
-      int r = pa;
-      if (pa != lab[b]) {   // equal parents => already one set
-        const int ru = find_halving(lab, a == pu ? pru : a);
-        const int rv = find_halving(lab, b);
-        r = min(ru, rv);
-        if (ru != rv) lab[max(ru, rv)] = r;
-      }
-      pu = a;
-      pru = r;
+  int ne = *n_edges;
+  ne = ne < 0 ? 0 : (ne > ec ? ec : ne);
+  // out-of-range ids clamp, as a gather does in the XLA twin
+  for (int e = threadIdx.x; e < ne; e += kThreads) {
+    const int a = min(max(eu[e], 0), s_cap - 1);
+    const int b = min(max(ev[e], 0), s_cap - 1);
+    if (a != b) atomicMin(&lab[max(a, b)], min(a, b));
+  }
+  __syncthreads();
+
+  const int per = (ne + kThreads - 1) / kThreads;
+  const int last = min(ne, (threadIdx.x + 1) * per);
+  for (int e = threadIdx.x * per; e < last; ++e) {
+    int ra = find_root(vlab, min(max(eu[e], 0), s_cap - 1));
+    int rb = find_root(vlab, min(max(ev[e], 0), s_cap - 1));
+    while (ra != rb) {
+      const int lo = min(ra, rb);
+      const int hi = max(ra, rb);
+      if (atomicCAS(&lab[hi], hi, lo) == hi) break;
+      // another thread hooked hi first: climb from the old roots
+      ra = find_root(vlab, ra);
+      rb = find_root(vlab, rb);
     }
   }
   __syncthreads();

@@ -2,9 +2,10 @@
 
 Port of the Pallas kernels of ``tools/probe_uf.py`` (``uf_probe``: serial
 union by min with path halving, no equal-parent skip, no root cache) and
-``tools/probe_uf2.py`` (``uf_packed``: edges packed as ``u << 15 | v``,
-with the skip and the cache; ``uf_packed_noskip``: the same without the
-skip). probe_uf2's v0 is ``kernels/union_find.py::cc_labels``. All compute
+``tools/probe_uf2.py`` (``uf_serial``: v0, the TPU production kernel's
+design with separate edge arrays, the skip and the root cache;
+``uf_packed``: v1, edges packed as ``u << 15 | v``, with the skip and the
+cache; ``uf_packed_noskip``: v2, the same without the skip). All compute
 labels[i] = min node id reachable from i over the first n_edges edges,
 which is canonical: on a CUDA tensor each wrapper launches its
 instantiation of csrc/probe_uf.cu and counts the launch; on a CPU tensor it
@@ -39,6 +40,15 @@ def uf_probe(eu, ev, n_edges, s_cap: int) -> torch.Tensor:
                          (("eu", eu), ("ev", ev)), n_edges, s_cap)
 
 
+def uf_serial(eu, ev, n_edges, s_cap: int) -> torch.Tensor:
+    """tools/probe_uf2.py's v0: the serial union pass with the skip and
+    the root cache, on (ec,) int32 eu/ev."""
+    if not eu.is_cuda:
+        return cc_labels_ref(eu, ev, n_edges, s_cap)
+    return launch_labels(uf_serial, "uf_serial_launch",
+                         (("eu", eu), ("ev", ev)), n_edges, s_cap)
+
+
 def uf_packed(euv, n_edges, s_cap: int) -> torch.Tensor:
     """tools/probe_uf2.py's v1: packed (ec,) int32 edges (pack_edges)."""
     if not euv.is_cuda:
@@ -56,5 +66,6 @@ def uf_packed_noskip(euv, n_edges, s_cap: int) -> torch.Tensor:
 
 
 uf_probe.launches = 0
+uf_serial.launches = 0
 uf_packed.launches = 0
 uf_packed_noskip.launches = 0

@@ -2,10 +2,11 @@
 
 Port of ``lidar_processing_tpu/kernels/union_find.py``. Contract:
 labels[i] = min node id reachable from i over the first n_edges edges.
-On a CUDA tensor ``cc_labels`` launches the serial shared-memory
-union-find (csrc/union_find.cu); on a CPU tensor it runs the plain
-PyTorch twin ``cc_labels_ref``. The labelling is canonical, so both give
-the same array exactly.
+On a CUDA tensor ``cc_labels`` launches the parallel shared-memory
+hook-and-compress kernel (csrc/union_find.cu, ECL-CC style); on a CPU
+tensor it runs the plain PyTorch twin ``cc_labels_ref``. The labelling is
+canonical, so both give the same array exactly. The TPU kernel's serial
+design lives on as the probe ``kernels/probe_uf.py::uf_serial``.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ package's, step for step:
   1. ONE sort of all points by (xy-column, z-cell) key; cells are
      h = R/sqrt(3) cubes, so every cell is a clique of the radius graph.
   2. Intra-column links between consecutive cells, verified by batched
-     block min-distance tests (kernels/min_d2.py).
+     block min-distance tests (kernels/tier_min_d2.py).
   3. Cells chained by verified (i, i+1) links contract into supernodes.
   4. Inter-column candidate pairs from one sort-merge of column keys and
      12 xy offsets, expanded to supernode pairs in static tiers.
@@ -17,8 +17,9 @@ package's, step for step:
   6. Connected components over the supernode graph (kernels/union_find.py).
   7. Size filter, canonical renumbering by min original index, writeback.
 
-On CUDA tensors the two kernels are the hand-written Hopper ones; on CPU
-tensors their plain twins. The port keeps the JAX package's fixed-shape,
+On CUDA tensors the two kernels are the hand-written Hopper ones (one
+tier_min_d2 launch per tier table, one union_find launch); on CPU tensors
+their plain twins. The port keeps the JAX package's fixed-shape,
 cap-and-overflow formulation: no host syncs, no data-dependent shapes.
 Where JAX relies on its indexing semantics the port spells them out:
 ``lax.dynamic_slice`` clamps its start, gathers clamp their indices, and
@@ -28,13 +29,17 @@ Where JAX relies on its indexing semantics the port spells them out:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from ..config import ClusteringConfig, PipelineConfig
-from ..kernels.min_d2 import min_d2_planar
+# _stacked_windows is re-exported: the probes' tests compare the pair
+# kernel with the clustering path's window gather under this name
+from ..kernels.tier_min_d2 import (_stacked_windows, tier_min_d2,  # noqa: F401
+                                   tier_slices, tier_windows)
 from ..kernels.union_find import cc_labels
 from ..types import CLUSTER_INVALID, CLUSTER_UNDEFINED, ClusteringResult
 from .scan_utils import IMAX as _IMAX
@@ -195,52 +200,6 @@ def _build_cells(sp: _SortedPoints, pcfg: PipelineConfig
     return tbl, cell_id
 
 
-def _stacked_windows(sp_xyz, starts, counts, fill: float, cap: int,
-                     sr: int):
-    """Gather contiguous runs as three planar (P, cap + sr) windows.
-
-    Rows of sr points (one row gather fetches all three coordinates) cover
-    [starts, starts + min(counts, cap)); lanes outside hold `fill`.
-    """
-    no = sp_xyz.shape[0]
-    if cap % sr or no % sr:
-        raise ValueError(f"window cap {cap} / buffer {no} not a multiple "
-                         f"of {sr}")
-    dev = sp_xyz.device
-    view = torch.cat([sp_xyz[:, a].reshape(no // sr, sr) for a in range(3)],
-                     dim=1)                               # (no/sr, 3*sr)
-    width = cap + sr
-    nrow = width // sr
-    sr0 = starts // sr
-    ridx = torch.clamp(sr0[:, None] + _iota(nrow, dev)[None, :], 0,
-                       no // sr - 1)
-    rows = view[ridx.long()]                              # (P, nrow, 3*sr)
-    off = (starts - sr0 * sr)[:, None]
-    aw = _iota(width, dev)[None, :]
-    ok = (aw >= off) & (aw < off + torch.clamp(counts, max=cap)[:, None])
-    p = starts.shape[0]
-    return tuple(
-        torch.where(ok, rows[:, :, a * sr:(a + 1) * sr].reshape(p, width),
-                    fill)
-        for a in range(3))
-
-
-def _block_min_d2(sp_xyz, u_start, u_count, v_start, v_count,
-                  u_cap: int, v_cap: int, dbg_win=None):
-    """Exact min pairwise d² between contiguous point runs (batched).
-
-    The u side is fetched in 8-point rows, the v side in 32-point rows;
-    the (P, Wu, Wv) block runs in kernels/min_d2.py (the Hopper kernel on
-    CUDA tensors, its plain twin on CPU tensors). A `dbg_win` list gets
-    the u then the v windows' sums (cluster_debug's checksum).
-    """
-    pu = _stacked_windows(sp_xyz, u_start, u_count, _F_BIG, u_cap, sr=8)
-    pv = _stacked_windows(sp_xyz, v_start, v_count, -_F_BIG, v_cap, sr=32)
-    if dbg_win is not None:
-        dbg_win += [sum(w.sum() for w in pu), sum(w.sum() for w in pv)]
-    return min_d2_planar(*pu, *pv)
-
-
 class _PairTest(NamedTuple):
     """Candidate pair records awaiting exact point-level tests."""
 
@@ -318,40 +277,58 @@ def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
     _, s_usuc, s_vsvc, s_slot = sort_by(
         tier_id, o_us * 512 + torch.clamp(o_uc, max=511),
         o_vs * 512 + torch.clamp(o_vc, max=511), slot_)
-    n_in_tier = [(tier_id == t).sum(dtype=_I32) for t in range(n_t_all)]
-    starts = [torch.zeros((), dtype=_I32, device=dev)]
-    for t in range(n_t_all):
-        starts.append(starts[-1] + n_in_tier[t])
+    n_in_tier = (tier_id == _iota(n_t_all, dev)[:, None]).sum(1, dtype=_I32)
+    starts = torch.cumsum(n_in_tier, 0, dtype=_I32) - n_in_tier
 
     overflow = ovf_b + (big & (maxc0 > _CHUNK * _CHUNK_GRID)).sum(dtype=_I32)
     # active pairs too big for every tier
     overflow = overflow + (tier_id == n_t_all).sum(dtype=_I32)
-    tgts = []
-    dbg_idx, dbg_win = ([], []) if debug else (None, None)
-    for t, (u_cap, v_cap, slots) in enumerate(tiers):
-        n_t = n_in_tier[t]
-        overflow = overflow + torch.clamp(n_t - slots, min=0)
-        tier_active = _iota(slots, dev) < n_t
-        usuc = dynamic_slice(s_usuc, starts[t], slots)
-        vsvc = dynamic_slice(s_vsvc, starts[t], slots)
-        us = torch.where(tier_active, usuc >> 9, 0)
-        uc = torch.where(tier_active, usuc & 511, 0)
-        vs = torch.where(tier_active, vsvc >> 9, 0)
-        vc = torch.where(tier_active, vsvc & 511, 0)
-        if debug:
-            dbg_idx.append(us.sum(dtype=_I32) + vs.sum(dtype=_I32))
-        mind2 = _block_min_d2(sp_xyz, us, uc, vs, vc, u_cap, v_cap, dbg_win)
-        verdict = tier_active & (mind2 <= r2)
-        slot = dynamic_slice(s_slot, starts[t], slots)
-        tgts.append(torch.where(verdict, slot, n_results))
+    # every tier's slots in one launch, then the verdicts over all of them:
+    # slot k of tier t is active below n_in_tier[t] and reads the pair
+    # record at the dynamic slice's clamped start + k
+    mind2 = tier_min_d2(sp_xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers)
+    lay = _tier_layout(tiers, s_usuc.shape[0], dev)
+    overflow = overflow + torch.clamp(n_in_tier - lay.slots,
+                                      min=0).sum(dtype=_I32)
+    lo = torch.minimum(torch.clamp(starts, min=0), lay.lo_max)
+    verdict = (lay.k < n_in_tier[lay.tier]) & (mind2 <= r2)
+    src = lo[lay.tier] + lay.k
     # ONE verdict scatter for all tiers
     out = set_drop(torch.zeros(n_results, dtype=torch.bool, device=dev),
-                  torch.cat(tgts), True)
-    dbg = None
-    if debug:
-        dbg = {"tiers": torch.stack(n_in_tier + [n_big]),
-               "tier_idx": sum(dbg_idx), "windows": sum(dbg_win)}
+                  torch.where(verdict, s_slot[src.long()], n_results), True)
+    if not debug:
+        return out, overflow, None
+    slices = tier_slices(s_usuc, s_vsvc, starts, n_in_tier, tiers)
+    wins = [sum(w.sum() for w in side)
+            for pair in tier_windows(sp_xyz, slices, tiers) for side in pair]
+    dbg = {"tiers": torch.cat([n_in_tier, n_big[None]]),
+           "tier_idx": sum(us.sum(dtype=_I32) + vs.sum(dtype=_I32)
+                           for us, _, vs, _ in slices),
+           "windows": sum(wins)}
     return out, overflow, dbg
+
+
+class _TierLayout(NamedTuple):
+    """The static shape of a tier table's concatenated slots."""
+
+    slots: torch.Tensor    # (T,) slots per tier
+    lo_max: torch.Tensor   # (T,) largest slice start: L - slots
+    tier: torch.Tensor     # (sum slots,) int64 tier of each slot
+    k: torch.Tensor        # (sum slots,) slot index within its tier
+
+
+@functools.lru_cache(maxsize=None)
+def _tier_layout(tiers, length: int, device) -> _TierLayout:
+    """Built once per (table, descriptor count, device): the one host to
+    device copy happens on the first call, outside any timed step."""
+    slots = [s for *_, s in tiers]
+    tier = [t for t, s in enumerate(slots) for _ in range(s)]
+    k = [i for s in slots for i in range(s)]
+    return _TierLayout(
+        torch.tensor(slots, dtype=_I32, device=device),
+        torch.tensor([length - s for s in slots], dtype=_I32, device=device),
+        torch.tensor(tier, dtype=torch.int64, device=device),
+        torch.tensor(k, dtype=_I32, device=device))
 
 
 class _SnTable(NamedTuple):

@@ -2,8 +2,9 @@
 
 Port of tools/probe_uf2.py:
 
-  v0  the production kernel (kernels/union_find.py::cc_labels: separate
-      eu/ev arrays, u-root cache, equal-parent skip)
+  v0  the TPU production kernel's serial design
+      (kernels/probe_uf.py::uf_serial: separate eu/ev arrays, u-root
+      cache, equal-parent skip)
   v1  packed single-array edges (u << 15 | v): half the edge loads
   v2  v1 without the equal-parent skip
 
@@ -21,8 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.probe_uf import pack_edges, uf_packed, uf_packed_noskip
-from ..kernels.union_find import cc_labels
+from ..kernels.probe_uf import (pack_edges, uf_packed, uf_packed_noskip,
+                                uf_serial)
 from ._common import clock, resolve_device, time_ms
 
 S = 10240
@@ -49,7 +50,7 @@ def main(device=None, edges=None, s: int = S, reps: int = 50) -> dict:
     ne = torch.as_tensor(ne, dtype=torch.int32, device=dev).reshape(())
     print(f"edges={int(ne)}", flush=True)
     euv = pack_edges(eu, ev)
-    variants = (("v0 current", lambda: cc_labels(eu, ev, ne, s)),
+    variants = (("v0 serial", lambda: uf_serial(eu, ev, ne, s)),
                 ("v1 packed", lambda: uf_packed(euv, ne, s)),
                 ("v2 packed, no precheck", lambda: uf_packed_noskip(euv, ne,
                                                                      s)))

@@ -16,6 +16,8 @@ import torch
 
 from lidar_processing_tpu_torch.config import DEFAULT_CONFIG
 from lidar_processing_tpu_torch.io.synthetic import pad_frame, street_scene
+from lidar_processing_tpu_torch.kernels import probe_uf as puf
+from lidar_processing_tpu_torch.kernels import tier_min_d2 as ttm
 from lidar_processing_tpu_torch.kernels import union_find as tuf
 from lidar_processing_tpu_torch.kernels.min_d2 import (min_d2_planar,
                                                        min_d2_planar_ref)
@@ -23,6 +25,10 @@ from lidar_processing_tpu_torch.ops import stixel as tsx
 from lidar_processing_tpu_torch.ops.segmentation import gpf_segment_sorted
 from lidar_processing_tpu_torch.runtime.pipeline import (
     device_frame_step_packed)
+from lidar_processing_tpu_torch.tools import probe_uf2
+from lidar_processing_tpu_torch.tools.kernel_cases import (tier_cases,
+                                                           uf_graphs,
+                                                           uf_oracle)
 from lidar_processing_tpu_torch.types import SEG_OBSTACLE
 
 pytestmark = pytest.mark.cuda
@@ -76,6 +82,51 @@ def test_union_find_kernel_matches_twin(cuda):
             got, tuf.cc_labels_ref(eu, ev, ne, s_cap).cpu().numpy())
 
 
+def _graphs(cuda):
+    """The contract graphs and probe_uf2's fallback graph, on the card."""
+    eu, ev, ne = probe_uf2.make_inputs()
+    for name, *g in uf_graphs() + [("probe_uf2", eu, ev, ne)]:
+        yield name, g, (torch.from_numpy(g[0]).to(cuda),
+                        torch.from_numpy(g[1]).to(cuda),
+                        torch.tensor(g[2], dtype=torch.int32, device=cuda))
+
+
+def test_union_find_kernel_on_contract_graphs(cuda):
+    for name, g, args in _graphs(cuda):
+        before = tuf.cc_labels.launches
+        got = tuf.cc_labels(*args, 10240).cpu()
+        assert tuf.cc_labels.launches == before + 1
+        assert torch.equal(got, tuf.cc_labels_ref(*args, 10240).cpu()), name
+        np.testing.assert_array_equal(got.numpy(),
+                                      uf_oracle(*g, 10240), err_msg=name)
+
+
+def test_uf_serial_matches_twin(cuda):
+    for name, _, args in _graphs(cuda):
+        before = puf.uf_serial.launches
+        got = puf.uf_serial(*args, 10240).cpu()
+        assert puf.uf_serial.launches == before + 1
+        assert torch.equal(got, tuf.cc_labels_ref(*args, 10240).cpu()), name
+
+
+@pytest.mark.parametrize("table", ["intra", "snp"])
+def test_tier_min_d2_kernel_matches_twin(cuda, table):
+    """Bit for bit at the shipped tier tables' full slot counts, on every
+    crafted descriptor set (overflowing tiers and a clamped slice start,
+    empty sides, counts past the caps, runs ending at and running past the
+    last point of a full-size buffer)."""
+    tiers = tsx._TIERS_INTRA if table == "intra" else tsx._TIERS_SNP
+    n = DEFAULT_CONFIG.pipeline.max_obstacle_points
+    for name, *case in tier_cases(tiers, n=n, seed=len(table)):
+        args = [torch.from_numpy(a).to(cuda) for a in case]
+        before = ttm.tier_min_d2.launches
+        got = ttm.tier_min_d2(*args, tiers).cpu()
+        assert ttm.tier_min_d2.launches == before + 1
+        want = ttm.tier_min_d2_ref(*args, tiers).cpu()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            (name, int((got != want).sum()))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     good = torch.zeros((4, 16), device=cuda)
     with pytest.raises(ValueError):
@@ -83,8 +134,35 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         min_d2_planar(good, good, good, good, good, good.t())
     e = torch.zeros(8, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        tuf.cc_labels(e, e, e[:1].reshape(()), 60000)
+    for bad in (60000, 0):
+        with pytest.raises(ValueError):
+            tuf.cc_labels(e, e, e[:1].reshape(()), bad)
+    for fn in (tuf.cc_labels, puf.uf_serial):
+        with pytest.raises(ValueError):
+            fn(e.long(), e, e[:1].reshape(()), 64)
+        with pytest.raises(ValueError):
+            fn(e, e.cpu(), e[:1].reshape(()), 64)
+        with pytest.raises(ValueError):
+            fn(e, e[:4], e[:1].reshape(()), 64)
+        with pytest.raises(ValueError):
+            fn(e, torch.zeros(16, dtype=torch.int32, device=cuda)[::2],
+               e[:1].reshape(()), 64)
+    tiers = ((8, 32, 8),)
+    xyz = torch.zeros((64, 3), device=cuda)
+    d = torch.zeros(16, dtype=torch.int32, device=cuda)
+    t1 = d[:1]
+    ok = (xyz, d, d, t1, t1)
+    assert ttm.tier_min_d2(*ok, tiers).shape == (8,)
+    for i, bad in ((0, xyz.double()), (0, xyz[:40]), (0, xyz.t().contiguous()),
+                   (0, xyz.t()), (1, d.float()), (2, d[:8]), (3, d[:2]),
+                   (4, t1.cpu()), (1, d.reshape(4, 4))):
+        args = list(ok)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            ttm.tier_min_d2(*args, tiers)
+    for bad_tiers in (((8, 32, 17),), ((8, 320, 8),), tiers * 9):
+        with pytest.raises(ValueError):
+            ttm.tier_min_d2(*ok, bad_tiers)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

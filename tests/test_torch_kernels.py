@@ -1,13 +1,16 @@
-"""PyTorch port: the two kernels' plain twins against the Pallas kernels.
+"""PyTorch port: the main path's kernels' plain twins against the JAX package.
 
 On the CPU the wrappers run their plain PyTorch twins (a CUDA tensor would
 launch the hand-written Hopper kernel instead). The twins are held against
 the JAX package's Pallas kernels run as its own tests run them — min_d2 in
 interpret mode, union-find under pltpu.force_tpu_interpret_mode() — and
-against their XLA twins. tests/test_torch_cuda.py compares the CUDA
-kernels with the twins on the card.
+against their XLA twins. The tier pass twin (tier_min_d2_ref) is held
+against the JAX package's per-tier loop, and a numpy model of the CUDA
+kernel's per-slot formula against the twin. tests/test_torch_cuda.py
+compares the CUDA kernels with the twins on the card.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,11 +19,16 @@ import torch
 from lidar_processing_tpu.kernels import union_find as juf
 from lidar_processing_tpu.kernels.min_d2 import (min_d2_planar as jmin_d2,
                                                  min_d2_planar_xla)
+from lidar_processing_tpu.ops import stixel as jsx
 from lidar_processing_tpu_torch.kernels import _build
+from lidar_processing_tpu_torch.kernels import tier_min_d2 as ttm
 from lidar_processing_tpu_torch.kernels import union_find as tuf
 from lidar_processing_tpu_torch.kernels.min_d2 import (min_d2_planar,
                                                        min_d2_planar_ref)
 from lidar_processing_tpu_torch.ops import stixel as tsx
+from lidar_processing_tpu_torch.tools.kernel_cases import (tier_cases,
+                                                           uf_graphs,
+                                                           uf_oracle)
 
 
 def _windows(seed, p, wu, wv):
@@ -114,6 +122,116 @@ def test_union_find_twin_long_chain_converges():
     got = tuf.cc_labels_ref(torch.from_numpy(eu), torch.from_numpy(ev),
                             torch.tensor(s_cap - 1, dtype=torch.int32), s_cap)
     assert np.all(got.numpy() == 0)
+
+
+_GRAPHS = {name: (eu, ev, ne) for name, eu, ev, ne in uf_graphs()}
+
+
+@pytest.mark.parametrize("name", sorted(_GRAPHS))
+def test_union_find_twin_on_contract_graphs(name):
+    """The kernel's contract at its edges (s_cap 10240, 32768 edge slots):
+    a descending chain, a permuted path, a star on the largest id,
+    duplicates and self-loops, out-of-range ids (clamp), n_edges 0, > ec
+    and < 0. The twin equals a scipy min-id oracle on every graph and the
+    JAX twin, which converges within its 32 rounds on all of them. JAX
+    wraps negative gather indices where the contract clamps them, so the
+    JAX twin gets the ids clamped below."""
+    eu, ev, ne = _GRAPHS[name]
+    got = tuf.cc_labels_ref(torch.from_numpy(eu), torch.from_numpy(ev),
+                            torch.tensor(ne, dtype=torch.int32), 10240)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), uf_oracle(eu, ev, ne, 10240))
+    want = juf.cc_labels_xla(jnp.asarray(np.maximum(eu, 0)),
+                             jnp.asarray(np.maximum(ev, 0)), jnp.int32(ne),
+                             10240)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# a tier table with the real caps and few slots, so the CPU twin is quick
+_SMALL_TIERS = ((8, 32, 40), (8, 96, 16), (32, 96, 24), (96, 96, 12),
+                (96, 288, 8), (288, 288, 6))
+_TIER_CASES = {name: case for name, *case in tier_cases(_SMALL_TIERS)}
+
+
+def _jax_tier_loop(xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers):
+    """The JAX package's per-tier loop of _tiered_exact, up to min d²:
+    dynamic slice, unpack, _stacked_windows on both sides, min_d2."""
+    out = []
+    for t, (u_cap, v_cap, slots) in enumerate(tiers):
+        act = jnp.arange(slots, dtype=jnp.int32) < n_in_tier[t]
+        usuc = jax.lax.dynamic_slice(s_usuc, (starts[t],), (slots,))
+        vsvc = jax.lax.dynamic_slice(s_vsvc, (starts[t],), (slots,))
+        us, uc, vs, vc = (jnp.where(act, a, 0) for a in (
+            usuc >> 9, usuc & 511, vsvc >> 9, vsvc & 511))
+        pu = jsx._stacked_windows(xyz, us, uc, jsx._F_BIG, u_cap, sr=8)
+        pv = jsx._stacked_windows(xyz, vs, vc, -jsx._F_BIG, v_cap, sr=32)
+        out.append(min_d2_planar_xla(*pu, *pv))
+    return np.asarray(jnp.concatenate(out))
+
+
+@pytest.mark.parametrize("name", sorted(_TIER_CASES))
+def test_tier_min_d2_twin_matches_jax_tier_loop(name):
+    """tier_min_d2_ref equals the old per-tier loop bit for bit: every
+    slot full, overflowing tiers with a clamped slice start, sparse tiers,
+    no active slot; empty sides, counts past the caps, runs ending at and
+    running past the buffer's last point."""
+    case = _TIER_CASES[name]
+    got = ttm.tier_min_d2_ref(*map(torch.from_numpy, case), _SMALL_TIERS)
+    want = _jax_tier_loop(*map(jnp.asarray, case), _SMALL_TIERS)
+    assert got.dtype == torch.float32
+    assert got.shape == (sum(s for *_, s in _SMALL_TIERS),)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+def _kernel_model(xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers):
+    """csrc/tier_min_d2.cu's per-slot formula, written out in numpy f32:
+    the clamped slice start, the active test, the count clamp, the read of
+    a point index q as row clamp(q >> log2(sr)), lane q mod sr, and an
+    empty side as its one fill point."""
+    n, length = xyz.shape[0], s_usuc.shape[0]
+    big = np.float32(1.0e9)
+
+    def run(desc, cap, shift, fill):
+        q = (desc >> 9) + np.arange(min(desc & 511, cap))
+        if q.size == 0:
+            return np.full((1, 3), fill, np.float32)
+        row = np.clip(q >> shift, 0, (n >> shift) - 1)
+        return xyz[(row << shift) | (q & ((1 << shift) - 1))]
+
+    out = []
+    for t, (u_cap, v_cap, slots) in enumerate(tiers):
+        lo = min(max(int(starts[t]), 0), length - slots)
+        for k in range(slots):
+            act = k < n_in_tier[t]
+            u = run(s_usuc[lo + k] if act else 0, u_cap, 3, big)
+            v = run(s_vsvc[lo + k] if act else 0, v_cap, 5, -big)
+            d = u[:, None, 0] - v[None, :, 0]
+            d2 = d * d
+            for a in (1, 2):
+                d = u[:, None, a] - v[None, :, a]
+                d2 = d2 + d * d
+            out.append(d2.min())
+    return np.array(out, np.float32)
+
+
+@pytest.mark.parametrize("name", sorted(_TIER_CASES))
+def test_tier_min_d2_kernel_formula_matches_twin(name):
+    """The CUDA kernel reads runs in place and skips the fill lanes; its
+    formula, modelled in numpy, equals the window twin bit for bit."""
+    case = _TIER_CASES[name]
+    want = ttm.tier_min_d2_ref(*map(torch.from_numpy, case), _SMALL_TIERS)
+    got = _kernel_model(*case, _SMALL_TIERS)
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  want.numpy().view(np.int32))
+
+
+def test_tier_min_d2_wrapper_on_cpu_runs_twin_without_counting():
+    case = tuple(map(torch.from_numpy, _TIER_CASES["overflow"]))
+    before = ttm.tier_min_d2.launches
+    got = ttm.tier_min_d2(*case, _SMALL_TIERS)
+    assert torch.equal(got, ttm.tier_min_d2_ref(*case, _SMALL_TIERS))
+    assert ttm.tier_min_d2.launches == before
 
 
 def test_build_names_library_by_source_hash(monkeypatch, tmp_path):

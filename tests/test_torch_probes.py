@@ -101,7 +101,7 @@ def test_probe_uf2_variants_match_pallas_interpret(variant):
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jprobe.run(getattr(jprobe, variant), args,
                                      s=S_SMALL))
-    got = {"k_v0": lambda: cc_labels(teu, tev, tne, S_SMALL),
+    got = {"k_v0": lambda: tpu_uf.uf_serial(teu, tev, tne, S_SMALL),
            "k_v1": lambda: tpu_uf.uf_packed(euv, tne, S_SMALL),
            "k_v2": lambda: tpu_uf.uf_packed_noskip(euv, tne, S_SMALL)
            }[variant]()
@@ -136,14 +136,15 @@ def test_uf_wrappers_on_cpu_run_the_twin_without_counting():
     tne = torch.tensor(ne, dtype=torch.int32)
     euv = tpu_uf.pack_edges(teu, tev)
     want = cc_labels(teu, tev, tne, S_SMALL).numpy()
-    counts = (tpu_uf.uf_probe.launches, tpu_uf.uf_packed.launches,
-              tpu_uf.uf_packed_noskip.launches)
+    wrappers = (tpu_uf.uf_probe, tpu_uf.uf_serial, tpu_uf.uf_packed,
+                tpu_uf.uf_packed_noskip)
+    counts = [w.launches for w in wrappers]
     for got in (tpu_uf.uf_probe(teu, tev, tne, S_SMALL),
+                tpu_uf.uf_serial(teu, tev, tne, S_SMALL),
                 tpu_uf.uf_packed(euv, tne, S_SMALL),
                 tpu_uf.uf_packed_noskip(euv, tne, S_SMALL)):
         np.testing.assert_array_equal(got.numpy(), want)
-    assert counts == (tpu_uf.uf_probe.launches, tpu_uf.uf_packed.launches,
-                      tpu_uf.uf_packed_noskip.launches)
+    assert counts == [w.launches for w in wrappers]
 
 
 # ---- pair minima: tools/probe_mosaic.py, tools/probe_mosaic3.py ---------
@@ -271,3 +272,12 @@ def test_probe_entry_points_need_a_named_device_without_a_gpu(monkeypatch):
                  tmos2.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             main()
+
+
+def test_step_bench_needs_a_gpu(monkeypatch):
+    """The step comparison measures in a process of its own per tree and
+    fails there, rather than timing the CPU, when no GPU is present."""
+    from lidar_processing_tpu_torch.tools import step_bench
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        step_bench.main(["--frames", "1"])

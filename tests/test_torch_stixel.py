@@ -179,6 +179,80 @@ def test_cluster_debug_matches_jax(name):
     assert int(got["n_edges"]) > 0 and int(got_res.num_clusters) > 3
 
 
+def _pair_tests(seed, n_pts, n_pairs):
+    """Crafted exact-test records over a random-walk point buffer (near
+    in index = near in space): sides of 0-8, 9-32, 33-96, 97-288 points,
+    chunked ones (289-700), ones beyond the chunk grid (> 8 x 288), empty
+    sides; v runs often right after their u run, so some pairs link."""
+    rng = np.random.default_rng(seed)
+    xyz = np.cumsum(rng.normal(0.0, 0.08, (n_pts, 3)), 0).astype(np.float32)
+    bands = np.array([[0, 8], [9, 32], [33, 96], [97, 288], [289, 700],
+                      [2400, 2600]])
+    pick = rng.choice(len(bands), (2, n_pairs),
+                      p=[0.3, 0.25, 0.2, 0.13, 0.1, 0.02])
+    cnt = rng.integers(bands[pick, 0], bands[pick, 1] + 1).astype(np.int32)
+    cnt[:, rng.random(n_pairs) < 0.05] = 0
+    us = rng.integers(0, n_pts - cnt[0] - cnt[1] - 4)
+    near = rng.random(n_pairs) < 0.5
+    vs = np.where(near, us + cnt[0] + rng.integers(0, 4, n_pairs),
+                  rng.integers(0, n_pts - cnt[1]))
+    rec = (us.astype(np.int32), cnt[0], vs.astype(np.int32), cnt[1],
+           rng.permutation(n_pairs).astype(np.int32),
+           rng.random(n_pairs) < 0.8)
+    return xyz, rec
+
+
+# (tier table, chunk capacity, pairs): the intra-column table as shipped;
+# a table of few slots, so tiers and the chunk list overflow; a table with
+# no tier past 96 points, so pairs of 97-288 points fit no tier
+_TIER_TABLES = {
+    "intra": (jsx._TIERS_INTRA, jsx._CHUNK_PAIRS_INTRA, 1200),
+    "overflow": (((8, 32, 24), (8, 96, 8), (32, 96, 12), (96, 96, 6),
+                  (96, 288, 4), (288, 288, 4)), 6, 400),
+    "no_fit": (((8, 32, 96), (32, 96, 64), (96, 96, 32)), 16, 400)}
+
+
+@pytest.mark.parametrize("table", sorted(_TIER_TABLES))
+def test_tiered_exact_matches_jax(table):
+    """The restructured tier pass (one tier_min_d2 call, then vector ops
+    over all slots) against the JAX package's per-tier loop: verdicts,
+    overflow, per-tier counts and the index checksum equal, the window
+    checksum within f32 rounding of its sum of magnitudes; and without
+    debug the same verdicts and overflow."""
+    tiers, chunk_pairs, n_pairs = _TIER_TABLES[table]
+    xyz, rec = _pair_tests(len(table), 8192, n_pairs)
+    r2 = CFG.clustering.distance_squared
+    want, w_ovf, w_tiers, w_dbg = jsx._tiered_exact(
+        jnp.asarray(xyz), jsx._PairTest(*map(jnp.asarray, rec)), r2,
+        n_pairs, tiers=tiers, chunk_pairs=chunk_pairs)
+    args = (torch.from_numpy(xyz), tsx._PairTest(*map(torch.from_numpy, rec)),
+            r2, n_pairs)
+    got, ovf, dbg = tsx._tiered_exact(*args, tiers=tiers,
+                                      chunk_pairs=chunk_pairs, debug=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(dbg["tiers"].numpy(), np.asarray(w_tiers))
+    assert int(ovf) == int(w_ovf) and ovf.dtype == torch.int32
+    assert int(dbg["tier_idx"]) == int(w_dbg["tier_idx"])
+    lanes = 3 * sum(s * (u + 8 + v + 32) for u, v, s in tiers)
+    assert abs(float(dbg["windows"]) - float(w_dbg["windows"])) \
+        <= 2e-5 * lanes * tsx._F_BIG
+    plain = tsx._tiered_exact(*args, tiers=tiers, chunk_pairs=chunk_pairs)
+    assert torch.equal(plain[0], got) and torch.equal(plain[1], ovf)
+    assert plain[2] is None
+    # the crafted records reach what the case is for
+    n_in = dbg["tiers"].numpy()
+    act, small = rec[5], np.minimum(rec[1], rec[3])
+    large = np.maximum(rec[1], rec[3])
+    assert got.any() and (~got).any() and (act & (small == 0)).any()
+    assert n_in[-1] > 0                                   # some chunked
+    if table == "intra":
+        assert (n_in[:-1] > 0).all() and int(ovf) > 0   # beyond the grid
+    if table == "overflow":
+        assert (n_in[:-1] > np.array([s for *_, s in tiers])).any()
+    if table == "no_fit":
+        assert (act & (large > 96) & (large <= 288)).any()
+
+
 def test_cluster_fused_builds_no_debug_dict(monkeypatch):
     """cluster_fused asks _cluster_core for no dict (so the main path
     launches none of its reductions) and still equals the JAX package."""
