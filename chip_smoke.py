@@ -8,24 +8,34 @@ Phases (any failure raises, so the script never exits 0 after one):
   1. device check: a CUDA device must be present (no CPU fallback);
   2. build: compile lidar_processing_tpu_torch/csrc/*.cu with nvcc for
      sm_90a (one nvcc per source, all at once) into one library under
-     lidar_processing_tpu_torch/build/;
+     lidar_processing_tpu_torch/build/, and, at the same time, the host
+     C++ module (native/lidar_native.cpp) with g++;
   3. main path, first, so that no measurement below slows its host-bound
      step: 8 full-size synthetic street scenes (seeds 0-7) written as PCD
      files, replayed through ReplayStream on the card; every frame must
      report overflow 0, one outline per cluster and a cluster count in the
      scene's target range, and the run must have launched tier_min_d2
-     twice a step (one per tier table), union_find once and min_d2 never;
+     twice a step (one per tier table), union_find once and min_d2 never,
+     and called the native chi_hulls_batch once a frame;
   4. CUDA vs CPU: frame 0's cluster_fused on the card (kernels) and on the
      CPU (twins) from the same sorted inputs must agree bit for bit, and
      the two segmentations within max(2, n // 1000) labels; a small
      scene's cluster labels on the card equal an independent exact
      radius-graph connected-components reference (scipy);
   5. no host syncs inside one device step (torch's sync debug mode);
-  6. per-frame device / host / end-to-end times, and torch.profiler's
-     count of CUDA kernels in one device step;
-  7. synthetic frame 0 at DEFAULT_CONFIG through cluster_debug, recording
+  6. per-frame device / host / end-to-end times;
+  7. host stage and entry points: frame 0's large-cluster outlines native
+     vs the scipy chain (chamfer < 0.05 each), a broken native build
+     raising instead of reaching scipy, host p50 and end to end of the 8
+     frames through the native and the scipy route, a stage-timed replay,
+     a replay paced at 10 Hz (its dispatch p50 and deadline misses, as
+     ``run --realtime`` reports them), and the CLI's run (with an
+     export), golden (2 frames, must pass) and
+     bench (its JSON line printed);
+  8. torch.profiler's count of CUDA kernels in one device step;
+  9. synthetic frame 0 at DEFAULT_CONFIG through cluster_debug, recording
      the two tier_min_d2 calls of its step and its edge list;
-  8. kernels vs their plain PyTorch twins on the card, at the shapes the
+  10. kernels vs their plain PyTorch twins on the card, at the shapes the
      main path gives them: tier_min_d2 on frame 0's two calls and on
      crafted descriptor sets at both shipped tier tables (bit for bit,
      and equal to the old design, _stacked_windows + min_d2 per tier);
@@ -35,7 +45,7 @@ Phases (any failure raises, so the script never exits 0 after one):
      torch.profiler's device time, the PyTorch call that computes the
      same function (where there is one) and the least time the card could
      take (bound);
-  9. probes: the kernels of the TPU probes in tools/ against their twins
+  11. probes: the kernels of the TPU probes in tools/ against their twins
      at the JAX probes' own sizes (union-find variants equal, pair minima
      <= 4 ULP, mosaic2 A and C equal, B within 1e-5 of the sum of |terms|),
      timed the same way; frame 0's edge list through every union-find
@@ -44,15 +54,19 @@ Phases (any failure raises, so the script never exits 0 after one):
      min_d2_planar (bit for bit), both timed; then the probe entry points
      (tools/probe_*.main) with the launch counts reset: every probe kernel
      must have run;
-  10. no jax imported.
+  12. no jax imported.
 
-Prints the kernels' JSON record, the card's name and power limit, and, as
-its last line, {"ok": true, "device": {...}}.
+Prints each phase's seconds, the kernels' JSON record, the card's name and
+power limit, and, as its last line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import json
+import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -75,6 +89,27 @@ CDIST = "donot_use_mm_for_euclid_dist"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
+def host_cpu() -> str:
+    """The host CPU's architecture, model and core count (host times
+    follow it): /proc/cpuinfo's "model name" on x86, the implementer and
+    part codes on Arm."""
+    info = {}
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = line.partition(":")
+        info.setdefault(key.strip(), value.strip())
+    model = info.get("model name") or " ".join(
+        f"{k} {info[k]}" for k in ("CPU implementer", "CPU part")
+        if k in info) or "model not reported"
+    return f"{platform.machine()} {model}, {os.cpu_count()} cores"
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -147,22 +182,38 @@ def check_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; host CPU {host_cpu()}")
     return torch.device("cuda", 0), smi
 
 
-def build_kernels():
+def build_all():
+    """The CUDA kernels (nvcc) and the host C++ module (g++), built at the
+    same time; returns the seconds of each build."""
     from lidar_processing_tpu_torch.kernels import _build
-    t0 = time.perf_counter()
-    info = _build.build()
-    _build.library()
-    secs = time.perf_counter() - t0
+    from lidar_processing_tpu_torch.native import _build as native
+
+    def timed(build, library):
+        t0 = time.perf_counter()
+        info = build()
+        library()
+        return info, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        cuda = pool.submit(timed, _build.build, _build.library)
+        host = pool.submit(timed, native.build, native.library)
+        (info, secs), (ninfo, nsecs) = cuda.result(), host.result()
     log(f"build: {info.path.name} from {[p.name for p in _build._sources()]}"
         f" flags {' '.join(_build.NVCC_FLAGS)} in {secs:.2f} s")
     for line in info.log.splitlines():
         if "registers" in line or "smem" in line or "error" in line:
             log(f"  nvcc: {line.strip()}")
-    return secs
+    march = next((line.split()[-1] for line in native.host_target(
+        native._cxx()).splitlines() if line.strip().startswith("-march=")),
+        "?")
+    log(f"build: {ninfo.path.name} from {native.SOURCE.name} flags "
+        f"{' '.join(native.CXX_FLAGS)} (-march=native is {march} here) in "
+        f"{nsecs:.2f} s (g++ {ninfo.seconds:.2f} s)")
+    return secs, nsecs
 
 
 def min_d2_inputs(rng, p, wu, wv, device):
@@ -676,12 +727,13 @@ def write_frames(tmp: Path) -> None:
 
 def run_main_path(tmp: Path, device):
     """ReplayStream over the frames; returns (stream, metrics, launches,
-    end-to-end ms/frame)."""
+    end-to-end ms/frame, native route counts)."""
     import torch
     from lidar_processing_tpu_torch.config import DEFAULT_CONFIG
     from lidar_processing_tpu_torch.kernels.min_d2 import min_d2_planar
     from lidar_processing_tpu_torch.kernels.tier_min_d2 import tier_min_d2
     from lidar_processing_tpu_torch.kernels.union_find import cc_labels
+    from lidar_processing_tpu_torch.ops.hull_native import chi_hulls_batch
     from lidar_processing_tpu_torch.runtime.stream import ReplayStream
 
     stream = ReplayStream(DEFAULT_CONFIG, data_dir=str(tmp), device=device)
@@ -694,11 +746,14 @@ def run_main_path(tmp: Path, device):
                "min_d2": min_d2_planar}
     for fn in kernels.values():
         fn.launches = 0
+    chi_hulls_batch.calls = chi_hulls_batch.fallbacks = 0
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     results = list(stream.run(N_FRAMES))  # run() warms up with one step
     run_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    route = {"chi_hulls_batch": chi_hulls_batch.calls,
+             "fallbacks": chi_hulls_batch.fallbacks}
     e2e_ms = (run_s - warm_s) * 1e3 / N_FRAMES
 
     lo, hi = CLUSTER_RANGE
@@ -724,10 +779,16 @@ def run_main_path(tmp: Path, device):
     want = {"tier_min_d2": 2 * steps, "union_find": steps, "min_d2": 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
+    if route["chi_hulls_batch"] != N_FRAMES:
+        raise AssertionError(f"{route['chi_hulls_batch']} native "
+                             f"chi_hulls_batch calls for {N_FRAMES} frames")
     log(f"main path: {N_FRAMES} frames + {WARMUP_FRAMES} warmup through "
-        f"ReplayStream; launches {launches}; peak device memory "
+        f"ReplayStream; launches {launches}; host outlines: "
+        f"{route['chi_hulls_batch']} native chi_hulls_batch calls, "
+        f"{route['fallbacks']} degenerate clusters sent down the single "
+        f"chain; peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 2**20:.0f} MiB")
-    return stream, results, launches, e2e_ms
+    return stream, results, launches, e2e_ms, route
 
 
 def check_cuda_vs_cpu(stream) -> int:
@@ -858,6 +919,158 @@ def time_frames(stream, results, device):
     return statistics.median(dev_ms), statistics.median(host_ms)
 
 
+def large_slices(fr):
+    """A FrameResult's large-cluster xy runs, as host_outputs slices them."""
+    sorted_xyz = fr.runs.sorted_xyz.cpu().numpy()
+    starts, counts = fr.runs.starts.cpu().numpy(), fr.runs.counts.cpu().numpy()
+    ids = fr.large_ids.cpu().numpy()[:int(fr.n_large)]
+    return [sorted_xyz[starts[c]:starts[c] + counts[c], :2] for c in ids]
+
+
+def scipy_outlines(slices, config):
+    """The host stage's plain reference: the scipy chain per cluster."""
+    from lidar_processing_tpu_torch.ops.host_hulls import chi_concave_hull
+    return [chi_concave_hull(xy, config.polygonization.chi) for xy in slices]
+
+
+def replay(stream, n: int, **kw):
+    """(end-to-end ms/frame less one warmup step, host p50 ms, metrics) of
+    an n-frame ReplayStream run."""
+    stream.warmup()
+    t0 = time.perf_counter()
+    stream.warmup()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = list(stream.run(n, **kw))
+    run_s = time.perf_counter() - t0
+    return ((run_s - warm_s) * 1e3 / n,
+            statistics.median(m.t_host_ms for _, m in results),
+            [m for _, m in results])
+
+
+def check_broken_build(slices, config) -> str:
+    """With the host module's source broken, the host stage must raise
+    (g++'s log in the message) and never reach the scipy chain."""
+    from lidar_processing_tpu_torch.native import _build as native
+    from lidar_processing_tpu_torch.ops import hull_native
+    from lidar_processing_tpu_torch.runtime import pipeline as pipe
+
+    def scipy_reached(*args):
+        raise AssertionError("the host stage fell back to scipy")
+
+    saved = (native.SOURCE, native.BUILD_DIR, hull_native._oracle_chain)
+    with tempfile.TemporaryDirectory() as tmp:
+        native.SOURCE = Path(tmp) / "lidar_native.cpp"
+        native.SOURCE.write_text("int broken( {\n")
+        native.BUILD_DIR = Path(tmp) / "build"
+        hull_native._oracle_chain = scipy_reached
+        native.build.cache_clear()
+        native.library.cache_clear()
+        try:
+            pipe._outlines_from_slices(slices, config)
+        except RuntimeError as e:
+            message = str(e)
+        else:
+            raise AssertionError("a broken native build did not raise")
+        finally:
+            native.SOURCE, native.BUILD_DIR, hull_native._oracle_chain = saved
+            native.build.cache_clear()
+            native.library.cache_clear()
+    if not message.startswith("g++ failed"):
+        raise AssertionError(f"broken build raised {message[:200]!r}")
+    native.library()
+    return message.splitlines()[0]
+
+
+def check_host_stage(tmp: Path, stream, route, native_s, smi) -> None:
+    """The host stage and the entry points on the card (see the module
+    docstring, phase 7)."""
+    from lidar_processing_tpu_torch import cli
+    from lidar_processing_tpu_torch.io.export import read_ply_xyzrgb
+    from lidar_processing_tpu_torch.oracle.diff import polygon_chamfer
+    from lidar_processing_tpu_torch.runtime import pipeline as pipe
+    from lidar_processing_tpu_torch.tools.golden_run import DEFAULT_OUT
+    cfg = stream.config
+    log(f"host stage: native module built in {native_s:.2f} s; the main "
+        f"path made {route['chi_hulls_batch']} chi_hulls_batch calls for "
+        f"{N_FRAMES} frames, {route['fallbacks']} per-cluster fallbacks")
+
+    # frame 0's large clusters: native against the scipy chain
+    fr = pipe.device_frame_step(stream.xyz[0], stream.mask[0], cfg)
+    slices = large_slices(fr)
+    t0 = time.perf_counter()
+    nat = pipe._outlines_from_slices(slices, cfg)
+    t_nat = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = scipy_outlines(slices, cfg)
+    t_ref = (time.perf_counter() - t0) * 1e3
+    chamfer = [polygon_chamfer(a, b) for a, b in zip(nat, ref)]
+    if len(nat) != len(slices) or max(chamfer) >= 0.05:
+        raise AssertionError(f"frame 0 native outlines: {len(nat)} for "
+                             f"{len(slices)} clusters, worst chamfer "
+                             f"{max(chamfer)}")
+    out = pipe.host_outputs(fr, cfg, int(stream.counts[0]))
+    if len(out.outlines) != out.num_clusters:
+        raise AssertionError(f"frame 0: {len(out.outlines)} outlines for "
+                             f"{out.num_clusters} clusters")
+    log(f"frame 0: {len(slices)} large clusters "
+        f"({sum(len(x) for x in slices)} points), native chi_hulls_batch "
+        f"{t_nat:.1f} ms vs the scipy chain {t_ref:.1f} ms; chamfer "
+        f"native vs scipy max {max(chamfer):.5f} m, mean "
+        f"{statistics.mean(chamfer):.5f} m; {len(out.outlines)} outlines "
+        f"== {out.num_clusters} clusters")
+    log(f"broken native build: raises ({check_broken_build(slices, cfg)}), "
+        f"never reaches scipy")
+
+    # the same 8 frames through both routes, native first
+    nat_e2e, nat_host, _ = replay(stream, N_FRAMES)
+    saved = pipe._outlines_from_slices
+    pipe._outlines_from_slices = scipy_outlines
+    try:
+        ref_e2e, ref_host, _ = replay(stream, N_FRAMES)
+    finally:
+        pipe._outlines_from_slices = saved
+    log(f"host route ({smi}; host CPU {host_cpu()}), {N_FRAMES} frames: "
+        f"native host p50 {nat_host:.2f} ms, end to end {nat_e2e:.2f} ms; "
+        f"scipy host p50 {ref_host:.2f} ms, end to end {ref_e2e:.2f} ms")
+
+    _, _, timed = replay(stream, 2, stage_timing=True)
+    for m in timed:
+        if None in (m.t_seg_ms, m.t_cluster_ms, m.t_hull_ms):
+            raise AssertionError("stage-timed replay left a stage untimed")
+        log(f"stage-timed frame {m.frame_id}: seg {m.t_seg_ms:.2f} ms, "
+            f"cluster {m.t_cluster_ms:.2f} ms, hull {m.t_hull_ms:.2f} ms "
+            f"(dispatch {m.t_dispatch_ms:.2f} ms)")
+
+    # paced at the sensor's period, as `run --realtime` replays
+    _, _, paced = replay(stream, N_FRAMES, realtime=True)
+    log(f"realtime replay ({stream.config.pipeline.replay_rate_hz:g} Hz), "
+        f"{N_FRAMES} frames: dispatch p50 "
+        f"{statistics.median(m.t_dispatch_ms for m in paced):.2f} ms, host "
+        f"p50 {statistics.median(m.t_host_ms for m in paced):.2f} ms, "
+        f"{sum(m.deadline_missed for m in paced)} deadline misses, "
+        f"{sum(m.frames_dropped for m in paced)} frames dropped")
+
+    # the CLI: run with an export, golden (must pass), bench
+    export = tmp / "export"
+    if cli.main(["run", "--data-dir", str(tmp), "--export-dir", str(export),
+                 "--export-frames", "0"]) != 0:
+        raise AssertionError("cli run failed")
+    plys = sorted(export.glob("frame_0000_*.ply"))
+    polys = json.loads((export / "frame_0000_polygons.json").read_text())
+    if len(plys) != 3 or not all(read_ply_xyzrgb(str(p))[0].shape[0]
+                                 for p in plys) or not polys["polygons"]:
+        raise AssertionError(f"cli run export: {plys}")
+    log(f"cli run: exported {[p.name for p in plys]} (PLY headers parse) "
+        f"and {len(polys['polygons'])} polygons")
+    if cli.main(["golden", "--data-dir", str(tmp), "--frames", "2"]) != 0:
+        raise AssertionError("cli golden failed on 2 frames")
+    bench = cli.main(["bench", "--data-dir", str(tmp), "--golden",
+                      str(DEFAULT_OUT)])
+    if bench != 0:
+        raise AssertionError("cli bench failed")
+
+
 def log_step_kernels(stream) -> dict:
     """torch.profiler's count of the CUDA kernels in one device step of
     frame 0, and their summed device time."""
@@ -874,28 +1087,39 @@ def log_step_kernels(stream) -> dict:
 
 def main() -> None:
     device, smi = check_device()
-    build_s = build_kernels()
+    with phase("build"):
+        build_s, native_s = build_all()
     # the main path first: its step is bound by the host's launch path, so
     # it is timed before the profiler and the large yardstick calls of the
     # kernel checks can slow the process down
     with tempfile.TemporaryDirectory() as tmp:
-        write_frames(Path(tmp))
-        stream, results, launches, e2e_ms = run_main_path(Path(tmp), device)
-    check_cuda_vs_cpu(stream)
-    check_against_radius_cc(device)
-    count_host_syncs(stream)
-    dev_ms, host_ms = time_frames(stream, results, device)
-    log(f"per frame ({smi}): device p50 {dev_ms:.3f} ms, host p50 "
-        f"{host_ms:.1f} ms, end to end {e2e_ms:.1f} ms "
-        f"(build {build_s:.1f} s)")
-    log_step_kernels(stream)
-    res, dbg, tier_calls = frame0_debug(device)
-    edges = (dbg["e_u"], dbg["e_v"], dbg["n_edges"])
-    kernels = [check_tier_min_d2(device, tier_calls),
-               check_union_find(device, edges), check_min_d2(device)]
-    kernels += check_probe_kernels(device)
-    probe_launches = run_probe_path(device, check_real_frame(device, res,
-                                                             dbg))
+        with phase("frames"):
+            write_frames(Path(tmp))
+        with phase("main path"):
+            stream, results, launches, e2e_ms, route = run_main_path(
+                Path(tmp), device)
+        with phase("CUDA vs CPU"):
+            check_cuda_vs_cpu(stream)
+            check_against_radius_cc(device)
+            count_host_syncs(stream)
+        with phase("timings"):
+            dev_ms, host_ms = time_frames(stream, results, device)
+        log(f"per frame ({smi}): device p50 {dev_ms:.3f} ms, host p50 "
+            f"{host_ms:.1f} ms, end to end {e2e_ms:.1f} ms "
+            f"(build {build_s:.1f} s)")
+        with phase("host stage and entry points"):
+            check_host_stage(Path(tmp), stream, route, native_s, smi)
+    with phase("step kernels"):
+        log_step_kernels(stream)
+    with phase("kernels vs twins"):
+        res, dbg, tier_calls = frame0_debug(device)
+        edges = (dbg["e_u"], dbg["e_v"], dbg["n_edges"])
+        kernels = [check_tier_min_d2(device, tier_calls),
+                   check_union_find(device, edges), check_min_d2(device)]
+    with phase("probes"):
+        kernels += check_probe_kernels(device)
+        probe_launches = run_probe_path(device, check_real_frame(device, res,
+                                                                 dbg))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

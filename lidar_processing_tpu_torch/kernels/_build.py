@@ -52,7 +52,7 @@ _ENTRIES = (
 
 
 class BuildInfo(NamedTuple):
-    """Where the library came from: path, nvcc's log, build seconds
+    """Where a library came from: path, the compiler's log, build seconds
     (0.0 when an up-to-date library was already on disk)."""
 
     path: Path

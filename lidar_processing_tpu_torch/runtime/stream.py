@@ -15,6 +15,8 @@ flight, and the host decodes the oldest while the device runs the next.
 Realtime mode keeps the DDS depth-``queue_depth`` semantics with a
 publication clock: a slow consumer sees dropped frames, not growing lag.
 On a CPU device the payload is already on the host and no event is used.
+Per-stage metrics mirror the reference's timing logs
+(ref: src/processor.cpp:167-171,204-207,218-219).
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ import torch
 
 from ..config import EngineConfig
 from ..io.dataset import list_frames, preload_padded
+from ..ops import stixel as _stixel
+from ..ops.segmentation import gpf_segment
+from ..types import SEG_OBSTACLE
 from .pipeline import device_frame_step_packed, host_outputs_packed
 
 
@@ -48,7 +53,13 @@ class FrameMetrics:
     # window was full when they were published (realtime mode only —
     # DDS QoS keep-last-`queue_depth`, ref: src/processor.cpp:69-73)
     frames_dropped: int = 0
-    # per-stage device times (stage_timing=True; not ported yet)
+    # per-stage times (stage_timing=True only; mirrors the reference's
+    # separate seg/cluster/polygonize logs, ref: src/processor.cpp:167-168,
+    # 204-205,218-219). TRIAGE-GRADE: seg and cluster are standalone steps,
+    # each waited for, and t_hull is the fused step's residual after
+    # subtracting them, so the split differs from the fused step's true
+    # internals (which share sorts across stages); for optimization use
+    # the device traces (torch.profiler, tools/step_bench.py).
     t_seg_ms: Optional[float] = None
     t_cluster_ms: Optional[float] = None
     t_hull_ms: Optional[float] = None
@@ -92,11 +103,30 @@ class ReplayStream:
         return device_frame_step_packed(self.xyz[fid], self.mask[fid],
                                         self.config)
 
+    def sync(self) -> None:
+        """Wait for the work queued on the stream's device."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def warmup(self) -> None:
         """One step end to end: builds the kernels and warms the caches."""
         self._step(0)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.sync()
+
+    def _stage_times(self, fid: int):
+        """Standalone segmentation, then clustering, each waited for, as
+        the reference times each stage in its callback
+        (ref: src/processor.cpp:148-219); (seg s, cluster s)."""
+        cfg = self.config
+        xyz, mask = self.xyz[fid], self.mask[fid]
+        t0 = time.perf_counter()
+        seg = gpf_segment(xyz, mask, cfg.segmentation)
+        obstacle = mask & (seg.labels == SEG_OBSTACLE)
+        self.sync()
+        t1 = time.perf_counter()
+        _stixel.cluster(xyz, obstacle, cfg.clustering, cfg.pipeline)
+        self.sync()
+        return t1 - t0, time.perf_counter() - t1
 
     def _to_host(self, payload: torch.Tensor, slot: int):
         """Start the payload's copy to the host; (host tensor, event)."""
@@ -117,13 +147,13 @@ class ReplayStream:
 
         realtime=True paces dispatch at replay_rate_hz and flags deadline
         misses (the reference's 100 ms budget, ref: README.md:4).
+        stage_timing=True times segmentation/clustering/hulls separately
+        (synchronously — lower throughput, richer metrics).
         """
-        if stage_timing:
-            raise NotImplementedError(
-                "stage_timing is not ported yet (ROADMAP.md)")
         period = 1.0 / self.config.pipeline.replay_rate_hz
         self.warmup()
-        inflight: List = []   # (fid, dispatch time, host buf, event, drops)
+        # (fid, dispatch time, host buf, event, stage times, drops)
+        inflight: List = []
         depth = self.config.pipeline.queue_depth
         produced = 0
         seq = 0               # publication sequence number (cyclic fids)
@@ -148,11 +178,12 @@ class ReplayStream:
             fid = seq % self.num_frames
             seq += 1
             t0 = time.perf_counter()
+            stages = self._stage_times(fid) if stage_timing else None
             # a ring of depth + 1 pinned buffers: the slot reused here
             # belonged to a frame that has already been consumed
             host, done = self._to_host(self._step(fid), produced % (depth + 1))
             produced += 1
-            inflight.append((fid, t0, host, done, dropped_before))
+            inflight.append((fid, t0, host, done, stages, dropped_before))
             # bounded window: consume the oldest once the queue is full
             while len(inflight) > depth:
                 yield self._consume(inflight.pop(0), period, with_outlines)
@@ -160,7 +191,7 @@ class ReplayStream:
             yield self._consume(inflight.pop(0), period, with_outlines)
 
     def _consume(self, item, period: float, with_outlines: bool):
-        fid, t0, host, done, dropped_before = item
+        fid, t0, host, done, stages, dropped_before = item
         if done is not None:
             done.synchronize()
         t1 = time.perf_counter()
@@ -170,6 +201,13 @@ class ReplayStream:
                                   with_outlines=with_outlines)
         t2 = time.perf_counter()
         seg = out.seg_labels
+        t_seg = t_cl = t_hull = None
+        if stages is not None:
+            t_seg, t_cl = stages[0] * 1e3, stages[1] * 1e3
+            # hull stage = the fused step's completion less the timed
+            # prefix stages (the fused step recomputes seg + cluster; its
+            # marginal hull cost is the rest of the dispatch window)
+            t_hull = max(0.0, (t1 - t0) * 1e3 - t_seg - t_cl)
         metrics = FrameMetrics(
             frame_id=fid,
             t_dispatch_ms=(t1 - t0) * 1e3,
@@ -181,5 +219,6 @@ class ReplayStream:
             overflow=out.overflow,
             deadline_missed=(t1 - t0) > period,
             frames_dropped=dropped_before,
+            t_seg_ms=t_seg, t_cluster_ms=t_cl, t_hull_ms=t_hull,
         )
         return out, metrics

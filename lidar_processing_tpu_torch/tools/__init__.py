@@ -1,6 +1,8 @@
-"""Probe entry points: the port's counterparts of the repo's tools/probe_*.
+"""Tool entry points: the port's counterparts of the repo's tools/.
 
-Each module has ``make_inputs`` (the JAX probe's seeded numpy draws) and
+``golden_run`` is the golden parity run (also ``python -m
+lidar_processing_tpu_torch golden``). Each probe module (``probe_*``) has
+``make_inputs`` (the JAX probe's seeded numpy draws) and
 ``main(device=None, ...)``, runnable as
 ``python -m lidar_processing_tpu_torch.tools.<probe>``. They run on the
 card unless the caller names another device (the plain twins then run).

@@ -1,4 +1,4 @@
-"""Device choice and timing shared by the probe entry points."""
+"""Device choice and timing shared by the port's tool entry points."""
 
 from __future__ import annotations
 
@@ -11,9 +11,9 @@ def resolve_device(device=None) -> torch.device:
     """The card unless the caller names a device; never a silent CPU."""
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the probes run on a CUDA GPU and none is "
-                           "available; pass device='cpu' to run the plain "
-                           "twins on the CPU")
+        raise RuntimeError("this entry point runs on a CUDA GPU and none "
+                           "is available; pass device='cpu' to run the "
+                           "plain twins on the CPU")
     return dev
 
 

@@ -3,8 +3,10 @@
 Seeded small street scenes go through both packages'
 device_frame_step(_packed) + host outputs. The scenes' segmentation labels
 agree between the two (asserted), so every payload word and every output
-field must be equal. Also holds the jax-free copies (config, PCD
-reader/writer, dataset loader) against their originals.
+field must be equal, outlines included: the JAX side runs its own native
+module (the ``jax_native`` fixture), the port its copy. Also holds the
+jax-free copies (config, PCD reader/writer, dataset loader) against their
+originals.
 """
 
 import dataclasses
@@ -24,6 +26,7 @@ from lidar_processing_tpu_torch.io import dataset as tdataset
 from lidar_processing_tpu_torch.io import pcd as tpcd
 from lidar_processing_tpu_torch.io.synthetic import pad_frame, street_scene
 from lidar_processing_tpu_torch.runtime import pipeline as tpipe
+from test_torch_native import jax_native, jax_native_lib  # noqa: F401
 
 CAP = 4096
 _PCFG = dataclasses.replace(
@@ -94,7 +97,7 @@ def _bytes_of(module, path, xyz, inten):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-def test_packed_slice_matches_jax(seed):
+def test_packed_slice_matches_jax(seed, jax_native):
     xyz, inten, x, m = _frame(seed)
     n = xyz.shape[0]
     want_fr = jpipe.device_frame_step(jnp.asarray(x), jnp.asarray(m), JCFG)
@@ -156,3 +159,22 @@ def test_outline_cap_and_unported_paths():
     with pytest.raises(NotImplementedError):
         tpipe.device_frame_step(torch.from_numpy(x), torch.from_numpy(m),
                                 cellgraph)
+
+
+def test_convex_outline_mode_matches_jax(jax_native):
+    """polygonizer_concave=False: convex outlines (Chan above
+    chan_threshold, monotone below) equal the JAX package's."""
+    xyz, inten, x, m = _frame(1)
+    poly = dataclasses.replace(TCFG.polygonization, polygonizer_concave=False,
+                               chan_threshold=40)
+    tcfg = TCFG.replace(polygonization=poly)
+    jcfg = JCFG.replace(polygonization=dataclasses.replace(
+        JCFG.polygonization, polygonizer_concave=False, chan_threshold=40))
+    want = jpipe.host_outputs(
+        jpipe.device_frame_step(jnp.asarray(x), jnp.asarray(m), jcfg), jcfg,
+        xyz.shape[0])
+    got = tpipe.host_outputs(
+        tpipe.device_frame_step(torch.from_numpy(x), torch.from_numpy(m),
+                                tcfg), tcfg, xyz.shape[0])
+    _assert_outputs_equal(got, want)
+    assert len(got.outlines) == got.num_clusters > 3

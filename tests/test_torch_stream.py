@@ -1,7 +1,8 @@
 """PyTorch port: the replay stream and the full-size synthetic scene.
 
 The port's ReplayStream must yield what the JAX package's ReplayStream
-yields on the same frame directory; the full-size synthetic street scene
+yields on the same frame directory (the JAX side on its own native module,
+the ``jax_native`` fixture), with and without stage timing; the full-size synthetic street scene
 (the port's stand-in for KITTI frames) must be KITTI-like and keep the JAX
 package within its static caps.
 """
@@ -21,6 +22,7 @@ from lidar_processing_tpu_torch.io import pcd as tpcd
 from lidar_processing_tpu_torch.io.synthetic import pad_frame, street_scene
 from lidar_processing_tpu_torch.runtime import pipeline as tpipe
 from lidar_processing_tpu_torch.runtime.stream import ReplayStream
+from test_torch_native import jax_native, jax_native_lib  # noqa: F401
 
 CAP = 4096
 _PCFG = dataclasses.replace(
@@ -47,9 +49,10 @@ def _assert_outputs_equal(got, want):
         np.testing.assert_array_equal(g, w)
 
 
-def test_replay_stream_matches_jax_stream(tmp_path):
+def test_replay_stream_matches_jax_stream(tmp_path, jax_native):
     """The port's ReplayStream (CPU device here) yields the JAX stream's
-    outputs frame for frame, cycling over the directory."""
+    outputs frame for frame, cycling over the directory; a stage-timed
+    replay yields the same outputs and sets the three stage times."""
     for seed in SEEDS:
         xyz, inten = street_scene(seed, "small")
         tpcd.write_pcd_xyzi(tmp_path / f"{seed:06d}.pcd", xyz, inten)
@@ -63,10 +66,15 @@ def test_replay_stream_matches_jax_stream(tmp_path):
                   "num_clusters", "num_outlines", "overflow",
                   "frames_dropped"):
             assert getattr(gm, f) == getattr(wm, f), f
-    with pytest.raises(NotImplementedError):
-        next(ReplayStream(TCFG, data_dir=str(tmp_path),
-                          device=torch.device("cpu")).run(1,
-                                                          stage_timing=True))
+    timed = list(ReplayStream(TCFG, data_dir=str(tmp_path),
+                              device=torch.device("cpu")).run(
+                                  2, stage_timing=True))
+    for (to, tm), (go, gm) in zip(timed, got):
+        _assert_outputs_equal(to, go)
+        assert tm.frame_id == gm.frame_id and gm.t_seg_ms is None
+        for t in (tm.t_seg_ms, tm.t_cluster_ms, tm.t_hull_ms):
+            assert t is not None and t >= 0.0
+        assert tm.t_seg_ms + tm.t_cluster_ms <= tm.t_dispatch_ms
 
 
 def test_replay_stream_without_a_device_needs_a_gpu(tmp_path, monkeypatch):
