@@ -24,18 +24,27 @@ Phases (any failure raises, so the script never exits 0 after one):
      radius-graph connected-components reference (scipy);
   5. no host syncs inside one device step (torch's sync debug mode);
   6. per-frame device / host / end-to-end times;
-  7. host stage and entry points: frame 0's large-cluster outlines native
+  7. the batched step (device_frame_step_batched) over the 8 frames at
+     B = 1, 4 and 8: every frame's FrameResult leaves and payload words
+     at B = 4 and 8 equal its B = 1 results bit for bit; each batched
+     step launched tier_min_d2 twice and union_find once, whatever B is
+     (counts set to 0 before each B and read after); ms per frame at each
+     B (CUDA events around the batched calls, best of 3 passes) and the
+     peak device memory of one step at each B; the B = 8 step's kernel
+     calls are recorded for phase 11;
+  8. host stage and entry points: frame 0's large-cluster outlines native
      vs the scipy chain (chamfer < 0.05 each), a broken native build
      raising instead of reaching scipy, host p50 and end to end of the 8
      frames through the native and the scipy route, a stage-timed replay,
      a replay paced at 10 Hz (its dispatch p50 and deadline misses, as
      ``run --realtime`` reports them), and the CLI's run (with an
      export), golden (2 frames, must pass) and
-     bench (its JSON line printed);
-  8. torch.profiler's count of CUDA kernels in one device step;
-  9. synthetic frame 0 at DEFAULT_CONFIG through cluster_debug, recording
+     bench (B = 1, 4 and 8; its JSON line printed);
+  9. torch.profiler's count of CUDA kernels in one device step at B = 1
+     (at most 4905) and in one batched step at B = 8;
+  10. synthetic frame 0 at DEFAULT_CONFIG through cluster_debug, recording
      the two tier_min_d2 calls of its step and its edge list;
-  10. kernels vs their plain PyTorch twins on the card, at the shapes the
+  11. kernels vs their plain PyTorch twins on the card, at the shapes the
      main path gives them: tier_min_d2 on frame 0's two calls and on
      crafted descriptor sets at both shipped tier tables (bit for bit,
      and equal to the old design, _stacked_windows + min_d2 per tier);
@@ -44,8 +53,10 @@ Phases (any failure raises, so the script never exits 0 after one):
      at all 12 stixel tier shapes (<= 4 ULP); with CUDA-event times,
      torch.profiler's device time, the PyTorch call that computes the
      same function (where there is one) and the least time the card could
-     take (bound);
-  11. probes: the kernels of the TPU probes in tools/ against their twins
+     take (bound); then both main-path kernels' batched launches on
+     frames 0-7's own calls (phase 7) against 8 single launches and the
+     batched twins, bit for bit, timed;
+  12. probes: the kernels of the TPU probes in tools/ against their twins
      at the JAX probes' own sizes (union-find variants equal, pair minima
      <= 4 ULP, mosaic2 A and C equal, B within 1e-5 of the sum of |terms|),
      timed the same way; frame 0's edge list through every union-find
@@ -54,7 +65,7 @@ Phases (any failure raises, so the script never exits 0 after one):
      min_d2_planar (bit for bit), both timed; then the probe entry points
      (tools/probe_*.main) with the launch counts reset: every probe kernel
      must have run;
-  12. no jax imported.
+  13. no jax imported.
 
 Prints each phase's seconds, the kernels' JSON record, the card's name and
 power limit, and, as its last line, {"ok": true, "device": {...}}.
@@ -85,6 +96,8 @@ CSRC = "lidar_processing_tpu_torch/csrc"
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
 CDIST = "donot_use_mm_for_euclid_dist"
+BATCHES = (4, 8)           # frames per batched step, beside B = 1
+KERNELS_B1_MAX = 4905      # CUDA kernels a B = 1 step: PR 3's 4671 + 5%
 
 
 def log(msg: str) -> None:
@@ -386,9 +399,6 @@ def check_tier_min_d2(device, frame_calls):
         return torch.cat([min_d2_planar(*pu, *pv) for pu, pv in tier_windows(
             args[0], tier_slices(*args[1:]), args[-1])])
 
-    def same(a, b):
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
-
     no = cfg.pipeline.max_obstacle_points
     sets = [(f"frame 0 {name}", args) for name, args in
             zip(("intra", "snp"), frame_calls)]
@@ -398,11 +408,11 @@ def check_tier_min_d2(device, frame_calls):
                                                for a in case), tiers)))
     for name, args in sets:
         got, want = tier_min_d2(*args), tier_min_d2_ref(*args)
-        if got.shape != want.shape or not same(got, want):
+        if not same_bits(got, want):
             raise AssertionError(f"tier_min_d2 {name}: "
                                  f"{int((got != want).sum())} slots differ "
                                  f"from the twin")
-        if not same(old_design(*args), got):
+        if not same_bits(old_design(*args), got):
             raise AssertionError(f"tier_min_d2 {name}: differs from "
                                  f"windows + min_d2")
         log(f"tier_min_d2 {name}: {got.numel()} slots, bit-identical to the "
@@ -568,7 +578,8 @@ def check_probe_kernels(device) -> list:
 def frame0_debug(device):
     """Synthetic frame 0 at DEFAULT_CONFIG through cluster_debug on the
     card, recording the arguments of its two tier_min_d2 calls (intra,
-    then supernode pairs). Returns (result, debug dict, calls)."""
+    then supernode pairs; frame 0's, without the batch axis). Returns
+    (result, debug dict, calls)."""
     import torch
     from lidar_processing_tpu_torch.config import DEFAULT_CONFIG as cfg
     from lidar_processing_tpu_torch.io.synthetic import pad_frame, street_scene
@@ -583,7 +594,8 @@ def frame0_debug(device):
     calls, kernel = [], sx.tier_min_d2
 
     def recording(*args):
-        calls.append(args)
+        # the step runs frame 0 as a batch of one: keep its own arrays
+        calls.append((*(a[0] for a in args[:5]), *args[5:]))
         return kernel(*args)
 
     sx.tier_min_d2 = recording
@@ -1071,18 +1083,176 @@ def check_host_stage(tmp: Path, stream, route, native_s, smi) -> None:
         raise AssertionError("cli bench failed")
 
 
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (floats compared as their int32 words,
+    so a NaN equals itself)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def run_batched_path(stream):
+    """The batched step over the 8 frames (module docstring, phase 7).
+    Returns the B = 8 step's kernel calls: {kernel name: [args]}."""
+    import functools
+    import torch
+    from lidar_processing_tpu_torch.kernels.tier_min_d2 import tier_min_d2
+    from lidar_processing_tpu_torch.kernels.union_find import cc_labels
+    from lidar_processing_tpu_torch.ops import stixel as sx
+    from lidar_processing_tpu_torch.runtime.pipeline import (
+        device_frame_step_batched, pack_host_payload)
+    from lidar_processing_tpu_torch.types import frame_of
+    cfg, dev = stream.config, stream.device
+    x, m = stream.xyz[:N_FRAMES], stream.mask[:N_FRAMES]
+
+    def step(lo: int, b: int):
+        fr = device_frame_step_batched(x[lo:lo + b], m[lo:lo + b], cfg)
+        return fr, pack_host_payload(fr, cfg)
+
+    ref = [step(f, 1) for f in range(N_FRAMES)]
+    launches = {}
+    for b in BATCHES:
+        tier_min_d2.launches = cc_labels.launches = 0
+        outs = [step(lo, b) for lo in range(0, N_FRAMES, b)]
+        launches[b] = {"tier_min_d2": tier_min_d2.launches,
+                       "union_find": cc_labels.launches}
+        steps = N_FRAMES // b
+        if launches[b] != {"tier_min_d2": 2 * steps, "union_find": steps}:
+            raise AssertionError(f"B={b}: {steps} batched steps launched "
+                                 f"{launches[b]}")
+        for lo, (fr, pay) in zip(range(0, N_FRAMES, b), outs):
+            for k in range(b):
+                want_fr, want_pay = ref[lo + k]
+                pairs = zip(torch.utils._pytree.tree_leaves(frame_of(fr, k)),
+                            torch.utils._pytree.tree_leaves(want_fr))
+                if not all(same_bits(g, w[0]) for g, w in pairs):
+                    raise AssertionError(f"B={b}: frame {lo + k}'s "
+                                         f"FrameResult differs from B=1")
+                if not same_bits(pay[k], want_pay[0]):
+                    raise AssertionError(f"B={b}: frame {lo + k}'s payload "
+                                         f"differs from B=1")
+    log(f"batched step: every frame's FrameResult leaves and payload words "
+        f"at B={'/'.join(map(str, BATCHES))} == B=1 bit for bit; launches "
+        + "; ".join(f"B={b} ({N_FRAMES // b} steps): {n}"
+                    for b, n in launches.items()))
+
+    ms, peak = {}, {}
+    for b in (1,) + BATCHES:
+        calls = [functools.partial(device_frame_step_batched, x[lo:lo + b],
+                                   m[lo:lo + b], cfg)
+                 for lo in range(0, N_FRAMES, b)]
+        calls[0]()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for call in calls:
+                call()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / N_FRAMES)
+        ms[b] = best
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        calls[0]()
+        torch.cuda.synchronize()
+        top = torch.cuda.max_memory_allocated(dev)
+        peak[b] = (top, top - before)
+    log(f"batched step, ms per frame (CUDA events, best of 3 passes over "
+        f"the {N_FRAMES} frames): "
+        + ", ".join(f"B={b} {t:.3f} ms" for b, t in ms.items())
+        + "; peak device memory of one step (its own): "
+        + ", ".join(f"B={b} {p / 2**20:.0f} MiB ({own / 2**20:.0f} MiB)"
+                    for b, (p, own) in peak.items()))
+
+    # the B = 8 step's kernel calls, for the kernels-vs-twins phase
+    calls = {"tier_min_d2": [], "union_find": []}
+    kernels = (sx.tier_min_d2, sx.cc_labels)
+
+    def recording(name, fn):
+        def record(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return record
+
+    sx.tier_min_d2 = recording("tier_min_d2", kernels[0])
+    sx.cc_labels = recording("union_find", kernels[1])
+    try:
+        device_frame_step_batched(x, m, cfg)
+    finally:
+        sx.tier_min_d2, sx.cc_labels = kernels
+    if (len(calls["tier_min_d2"]), len(calls["union_find"])) != (2, 1):
+        raise AssertionError(f"B={N_FRAMES} step: {calls} kernel calls")
+    return calls
+
+
+def check_batched_kernels(calls) -> None:
+    """Both main-path kernels' batched launches on frames 0-7's own calls
+    (the B = 8 step's) against 8 single launches and the batched twins,
+    bit for bit; CUDA-event and profiler times of the batched launch
+    beside the single launches', and its bound."""
+    from lidar_processing_tpu_torch.kernels.tier_min_d2 import (
+        tier_min_d2, tier_min_d2_ref)
+    from lidar_processing_tpu_torch.kernels.union_find import (cc_labels,
+                                                               cc_labels_ref)
+    for name, fn, twin in (("tier_min_d2", tier_min_d2, tier_min_d2_ref),
+                           ("union_find", cc_labels, cc_labels_ref)):
+        for i, args in enumerate(calls[name]):
+            n_in, rest = len(args) - 1, args[-1:]
+            frames = args[0].shape[0]
+            got = fn(*args)
+            if not same_bits(got, twin(*args)):
+                raise AssertionError(f"{name} B={frames} call {i}: differs "
+                                     f"from the batched twin")
+            singles = [lambda b=b: fn(*(a[b] for a in args[:n_in]), *rest)
+                       for b in range(frames)]
+            if not all(same_bits(got[b], one()) for b, one in
+                       enumerate(singles)):
+                raise AssertionError(f"{name} B={frames} call {i}: differs "
+                                     f"from {frames} single launches")
+            t = (cuda_ms(lambda: fn(*args)), device_ms(lambda: fn(*args)))
+            t1 = (cuda_ms(lambda: [one() for one in singles]),
+                  device_ms(lambda: [one() for one in singles]))
+            if name == "tier_min_d2":
+                work = np.sum([tier_work([a[b] for a in args[:n_in]],
+                                         args[-1]) for b in range(frames)], 0)
+                b_ = bound(*work)
+            else:
+                b_ = uf_bound(int(args[2].sum()), 8, args[-1])
+            log(f"{name} B={frames} (frames 0-{frames - 1}'s call {i}): one "
+                f"launch == {frames} single launches == the batched twin, "
+                f"bit for bit; one launch {t[0]:.4f} ms (device "
+                f"{fmt_ms(t[1])}), {frames} single launches {t1[0]:.4f} ms "
+                f"(device {fmt_ms(t1[1])}), bound {b_['bound_ms']:.6f} ms "
+                f"({b_['bound_by']})")
+
+
 def log_step_kernels(stream) -> dict:
     """torch.profiler's count of the CUDA kernels in one device step of
-    frame 0, and their summed device time."""
+    frame 0 (at most KERNELS_B1_MAX) and in one batched step of frames
+    0-7, with their summed device time."""
     from lidar_processing_tpu_torch.runtime.pipeline import (
-        device_frame_step_packed)
+        device_frame_step_packed, device_frame_step_packed_batched)
     from lidar_processing_tpu_torch.tools.step_bench import step_kernels
     out = step_kernels(lambda: device_frame_step_packed(
         stream.xyz[0], stream.mask[0], stream.config))
-    log(f"one device step (frame 0, torch.profiler): {out['kernels']} CUDA "
-        f"kernels, {out['copies']} copies and fills, "
-        f"{out['busy_ms']:.3f} ms of device time")
-    return out
+    out8 = step_kernels(lambda: device_frame_step_packed_batched(
+        stream.xyz[:N_FRAMES], stream.mask[:N_FRAMES], stream.config))
+    log(f"one device step (torch.profiler): B=1 (frame 0) {out['kernels']} "
+        f"CUDA kernels, {out['copies']} copies and fills, "
+        f"{out['busy_ms']:.3f} ms of device time; B={N_FRAMES} (frames 0-"
+        f"{N_FRAMES - 1}) {out8['kernels']} CUDA kernels, {out8['copies']} "
+        f"copies and fills, {out8['busy_ms']:.3f} ms of device time "
+        f"({out8['busy_ms'] / N_FRAMES:.3f} ms a frame)")
+    if out["kernels"] > KERNELS_B1_MAX:
+        raise AssertionError(f"a B=1 step ran {out['kernels']} CUDA "
+                             f"kernels, more than {KERNELS_B1_MAX}")
+    return {1: out, N_FRAMES: out8}
 
 
 def main() -> None:
@@ -1107,6 +1277,8 @@ def main() -> None:
         log(f"per frame ({smi}): device p50 {dev_ms:.3f} ms, host p50 "
             f"{host_ms:.1f} ms, end to end {e2e_ms:.1f} ms "
             f"(build {build_s:.1f} s)")
+        with phase("batched step"):
+            batched_calls = run_batched_path(stream)
         with phase("host stage and entry points"):
             check_host_stage(Path(tmp), stream, route, native_s, smi)
     with phase("step kernels"):
@@ -1116,6 +1288,7 @@ def main() -> None:
         edges = (dbg["e_u"], dbg["e_v"], dbg["n_edges"])
         kernels = [check_tier_min_d2(device, tier_calls),
                    check_union_find(device, edges), check_min_d2(device)]
+        check_batched_kernels(batched_calls)
     with phase("probes"):
         kernels += check_probe_kernels(device)
         probe_launches = run_probe_path(device, check_real_frame(device, res,

@@ -12,11 +12,15 @@ per-frame metrics logging and optional visualization export
     python -m lidar_processing_tpu_torch run --export-dir out --export-frames 0,77
     python -m lidar_processing_tpu_torch golden           # parity run (tools/golden_run.py)
     python -m lidar_processing_tpu_torch bench            # benchmark (bench.py)
+    python -m lidar_processing_tpu_torch bench --batches 4 8   # B frames a step
 
 Every subcommand takes ``--device`` (default ``cuda``; there is no silent
 CPU fallback: with no GPU it raises unless given ``--device cpu``) and
 ``--data-dir`` (default: the checkout's ``data/``); ``bench`` also takes
-``--frames`` and ``--golden FILE``, ``golden`` ``--frames`` and ``--out``.
+``--frames``, ``--batches`` (the batch sizes B measured beside B=1, each
+step taking B frames at once; default 4 8: ``ms_per_frame`` is the best
+of them, ``batch`` its B) and ``--golden FILE``; ``golden`` ``--frames``
+and ``--out``.
 """
 
 from __future__ import annotations
@@ -95,7 +99,8 @@ def main(argv=None) -> int:
     run.add_argument("--export-frames", default=None,
                      help="comma-separated frame ids to export")
     sub.add_parser("bench", add_help=False,
-                   help="headline benchmark (one JSON line)")
+                   help="headline benchmark (one JSON line): frames/s at "
+                        "B=1 and batched B (--batches, default 4 8)")
     sub.add_parser("golden", add_help=False,
                    help="golden parity run vs the host oracles")
 

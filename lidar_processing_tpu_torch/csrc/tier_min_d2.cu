@@ -1,5 +1,5 @@
-// Exact tests of one stixel tier table in one launch: the min squared
-// distance of every pair slot, reading the point runs in place.
+// Exact tests of one stixel tier table in one launch for B frames: the min
+// squared distance of every pair slot, reading the point runs in place.
 //
 // Replaces, on the clustering main path, the per-tier loop of
 // lidar_processing_tpu/ops/stixel.py::_tiered_exact around the Pallas
@@ -30,8 +30,12 @@
 // and needed ~20 small launches per tier to gather the windows. What is
 // left is the launch and the scattered 4-byte point loads.
 //
-// Design: one launch over every tier of the table; the block ranges per
-// tier come from the static slot counts, so the host never waits.
+// Design: one launch over every tier of the table and every frame of the
+// batch; the block ranges per tier come from the static slot counts, so
+// the host never waits. Frame f is blockIdx.y: its point buffer, its
+// descriptors, its tier starts and counts and its output row sit at f
+// times their per-frame sizes (the JAX package's vmap over frames, written
+// out; each frame's slots are computed exactly as a batch of one).
 //  - tiers with u_cap <= 32 and v_cap <= 96: one warp per pair slot, 8 a
 //    block; u point i in lane i, shuffled to the warp one at a time; v
 //    point j = lane + 32 m in registers (m < 3); the warp reduces by
@@ -50,6 +54,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTiers = 8;
+constexpr int kMaxFrames = 65535;  // gridDim.y
 constexpr int kMaxRun = 288;   // widest run a block-per-pair tier stages
 constexpr int kWarpU = 32;     // warp tiers: u in lanes
 constexpr int kWarpV = 96;     // warp tiers: 3 v points a lane
@@ -64,6 +69,7 @@ struct TierTable {
   int per_warp[kMaxTiers];
   int slot_off[kMaxTiers];        // first output slot of each tier
   int block_off[kMaxTiers + 1];   // first block of each tier
+  int slot_total;                 // output slots per frame
 };
 
 __device__ __forceinline__ float dist2(float ax, float ay, float az,
@@ -200,6 +206,13 @@ tier_min_d2_kernel(const float* __restrict__ xyz, int n,
                    const int* __restrict__ starts,
                    const int* __restrict__ n_in_tier,
                    float* __restrict__ out, TierTable tiers) {
+  const size_t f = blockIdx.y;   // this block's frame
+  xyz += f * 3 * static_cast<size_t>(n);
+  usuc += f * len;
+  vsvc += f * len;
+  starts += f * tiers.n;
+  n_in_tier += f * tiers.n;
+  out += f * tiers.slot_total;
   int t = 0;
   while (t + 1 < tiers.n && static_cast<int>(blockIdx.x) >=
                                 tiers.block_off[t + 1])
@@ -229,14 +242,17 @@ tier_min_d2_kernel(const float* __restrict__ xyz, int n,
 
 }  // namespace
 
-// table: n_tiers (u_cap, v_cap, slots) triples in host memory; out gets
-// the sum of the slots, tier after tier.
+// table: n_tiers (u_cap, v_cap, slots) triples in host memory. Per frame
+// (frames of them, one after another): xyz (n, 3), usuc and vsvc (len),
+// starts and n_in_tier (n_tiers), and out the sum of the slots, tier after
+// tier.
 extern "C" int tier_min_d2_launch(const float* xyz, int n, const int* usuc,
                                   const int* vsvc, int len,
                                   const int* starts, const int* n_in_tier,
                                   float* out, const int* table, int n_tiers,
-                                  void* stream) {
-  if (n_tiers <= 0 || n_tiers > kMaxTiers || n < 32 || n % 32 != 0)
+                                  int frames, void* stream) {
+  if (n_tiers <= 0 || n_tiers > kMaxTiers || n < 32 || n % 32 != 0 ||
+      frames <= 0 || frames > kMaxFrames)
     return static_cast<int>(cudaErrorInvalidValue);
   TierTable tiers = {};
   tiers.n = n_tiers;
@@ -258,7 +274,8 @@ extern "C" int tier_min_d2_launch(const float* xyz, int n, const int* usuc,
     blocks += warp ? (s + kWarps - 1) / kWarps : s;
   }
   tiers.block_off[n_tiers] = blocks;
-  tier_min_d2_kernel<<<blocks, kThreads, 0,
+  tiers.slot_total = slot_total;
+  tier_min_d2_kernel<<<dim3(blocks, frames), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       xyz, n, usuc, vsvc, len, starts, n_in_tier, out, tiers);
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,5 @@
-// Connected components over a compacted edge list: parallel hook and
-// compress in shared memory.
+// Connected components over compacted edge lists: parallel hook and
+// compress in shared memory, one block per graph of a batch.
 //
 // Replaces lidar_processing_tpu/kernels/union_find.py::_uf_kernel (the
 // Pallas SMEM kernel launched by cc_labels_pallas). Contract:
@@ -17,6 +17,11 @@
 //
 // Design: ECL-CC's hook and compress (Jaiganesh & Burtscher, HPDC 2018),
 // in one block of 1024 threads with the labels in dynamic shared memory.
+// A batch of B frames is B blocks of one launch (blockIdx.x = frame, each
+// with its own s_cap labels: 40 KB at the shipped 10240, so several blocks
+// share an SM); block f reads edges f * ec onward, n_edges[f], and writes
+// out row f. The JAX package runs its kernel once per frame under vmap
+// (sequential_vmap); each block here does exactly what a batch of one does.
 //   1. init: lab[i] = i; then, over every edge in parallel,
 //      atomicMin(&lab[hi], lo): each node starts under its smallest
 //      neighbour, ECL-CC's initialisation, with no chain of loads;
@@ -62,6 +67,11 @@ __global__ void __launch_bounds__(kThreads)
 union_find_kernel(const int* __restrict__ eu, const int* __restrict__ ev,
                   const int* __restrict__ n_edges, int* __restrict__ out,
                   int ec, int s_cap) {
+  const size_t f = blockIdx.x;   // this block's frame
+  eu += f * ec;
+  ev += f * ec;
+  n_edges += f;
+  out += f * s_cap;
   extern __shared__ int lab[];
   volatile int* vlab = lab;
   for (int i = threadIdx.x; i < s_cap; i += kThreads) lab[i] = i;
@@ -102,16 +112,19 @@ union_find_kernel(const int* __restrict__ eu, const int* __restrict__ ev,
 
 }  // namespace
 
+// Per frame (frames of them, one after another): eu and ev (ec), n_edges
+// (1), out (s_cap).
 extern "C" int union_find_launch(const int* eu, const int* ev,
-                                 const int* n_edges, int* out, int ec,
-                                 int s_cap, void* stream) {
-  if (s_cap <= 0) return 0;
+                                 const int* n_edges, int* out, int frames,
+                                 int ec, int s_cap, void* stream) {
+  if (s_cap <= 0 || frames <= 0) return 0;
   const size_t smem = static_cast<size_t>(s_cap) * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       union_find_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  union_find_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      eu, ev, n_edges, out, ec, s_cap);
+  union_find_kernel<<<frames, kThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(eu, ev, n_edges,
+                                                           out, ec, s_cap);
   return static_cast<int>(cudaGetLastError());
 }

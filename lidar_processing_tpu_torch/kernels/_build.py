@@ -37,8 +37,8 @@ _I = ctypes.c_int
 # C entry points: (name, argtypes); each returns cudaGetLastError()
 _ENTRIES = (
     ("min_d2_planar_launch", [_P] * 7 + [_I, _I, _I, _P]),
-    ("union_find_launch", [_P] * 4 + [_I, _I, _P]),
-    ("tier_min_d2_launch", [_P, _I, _P, _P, _I] + [_P] * 4 + [_I, _P]),
+    ("union_find_launch", [_P] * 4 + [_I, _I, _I, _P]),
+    ("tier_min_d2_launch", [_P, _I, _P, _P, _I] + [_P] * 4 + [_I, _I, _P]),
     ("uf_probe_launch", [_P] * 4 + [_I, _I, _P]),
     ("uf_serial_launch", [_P] * 4 + [_I, _I, _P]),
     ("uf_packed_launch", [_P] * 3 + [_I, _I, _P]),

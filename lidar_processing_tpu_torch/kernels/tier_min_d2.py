@@ -8,14 +8,19 @@ from ``starts[t]`` (clamped as ``lax.dynamic_slice`` clamps it), keeps the
 first ``n_in_tier[t]`` of them, and computes for each slot the min d²
 between the u run's first u_cap points and the v run's first v_cap points.
 
-On a CUDA tensor ``tier_min_d2`` launches csrc/tier_min_d2.cu: one launch
-for every tier of the table, reading the runs in place from the (NO, 3)
-point buffer, and counts it in ``tier_min_d2.launches``. On a CPU tensor it
-runs the twin ``tier_min_d2_ref``, the computation of the JAX package tier
-by tier: dynamic slices, unpacking, ``_stacked_windows`` on both sides and
-``min_d2_planar_ref``. Both evaluate d² unfused as dx², + dy², + dz², and
-the kernel counts an empty side as one ±1e9 fill point, as the windows'
-fill lanes are; so they agree bit for bit, inactive slots included.
+Every argument may carry a leading frame axis B (the batched step's
+frames): each frame's slots are computed from its own points, descriptors,
+starts and counts, exactly as a call for that frame alone.
+
+On a CUDA tensor ``tier_min_d2`` launches csrc/tier_min_d2.cu: ONE launch
+for every tier of the table and every frame, reading the runs in place from
+the (B, NO, 3) point buffer, and counts it in ``tier_min_d2.launches``. On
+a CPU tensor it runs the twin ``tier_min_d2_ref``, the computation of the
+JAX package tier by tier: dynamic slices, unpacking, ``_stacked_windows``
+on both sides and ``min_d2_planar_ref``. Both evaluate d² unfused as dx²,
++ dy², + dz², and the kernel counts an empty side as one ±1e9 fill point,
+as the windows' fill lanes are; so they agree bit for bit, inactive slots
+included.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import ctypes
 
 import torch
 
-from ..ops.scan_utils import dynamic_slice
+from ..ops.scan_utils import dynamic_slice, take_rows
 from . import _build
 from .min_d2 import min_d2_planar_ref
 
@@ -33,50 +38,52 @@ U_ROW = 8    # points per row gather on the u side
 V_ROW = 32   # and on the v side
 MAX_TIERS = 8  # the kernel's tier table
 MAX_RUN = 288  # the widest run a tier may cap (block-per-pair staging)
+MAX_FRAMES = 65535  # frames of one launch (gridDim.y)
 _I32 = torch.int32
 
 
 def _stacked_windows(sp_xyz, starts, counts, fill: float, cap: int,
                      sr: int):
-    """Gather contiguous runs as three planar (P, cap + sr) windows.
+    """Gather contiguous runs as three planar (..., P, cap + sr) windows.
 
-    Rows of sr points (one row gather fetches all three coordinates) cover
+    sp_xyz (..., NO, 3); starts, counts (..., P). Rows of sr points (one
+    row gather fetches all three coordinates) cover
     [starts, starts + min(counts, cap)); lanes outside hold `fill`.
     """
-    no = sp_xyz.shape[0]
+    no = sp_xyz.shape[-2]
     if cap % sr or no % sr:
         raise ValueError(f"window cap {cap} / buffer {no} not a multiple "
                          f"of {sr}")
     dev = sp_xyz.device
-    view = torch.cat([sp_xyz[:, a].reshape(no // sr, sr) for a in range(3)],
-                     dim=1)                               # (no/sr, 3*sr)
+    lead = sp_xyz.shape[:-2]
+    view = torch.cat([sp_xyz[..., a].reshape(*lead, no // sr, sr)
+                      for a in range(3)], dim=-1)     # (..., no/sr, 3*sr)
     width = cap + sr
     nrow = width // sr
     sr0 = starts // sr
-    ridx = torch.clamp(sr0[:, None]
-                       + torch.arange(nrow, dtype=_I32, device=dev)[None, :],
+    ridx = torch.clamp(sr0[..., None]
+                       + torch.arange(nrow, dtype=_I32, device=dev),
                        0, no // sr - 1)
-    rows = view[ridx.long()]                              # (P, nrow, 3*sr)
-    off = (starts - sr0 * sr)[:, None]
-    aw = torch.arange(width, dtype=_I32, device=dev)[None, :]
-    ok = (aw >= off) & (aw < off + torch.clamp(counts, max=cap)[:, None])
-    p = starts.shape[0]
+    rows = take_rows(view, ridx)                      # (..., P, nrow, 3*sr)
+    off = (starts - sr0 * sr)[..., None]
+    aw = torch.arange(width, dtype=_I32, device=dev)
+    ok = (aw >= off) & (aw < off + torch.clamp(counts, max=cap)[..., None])
     return tuple(
-        torch.where(ok, rows[:, :, a * sr:(a + 1) * sr].reshape(p, width),
-                    fill)
+        torch.where(ok, rows[..., a * sr:(a + 1) * sr].reshape(
+            *starts.shape, width), fill)
         for a in range(3))
 
 
 def tier_slices(s_usuc, s_vsvc, starts, n_in_tier, tiers):
     """Per tier, the (us, uc, vs, vc) of its slots as the tier pass reads
-    them: the dynamic slice at starts[t], unpacked, with (0, 0) on both
-    sides of every slot at or past n_in_tier[t]."""
+    them: the dynamic slice at starts[..., t], unpacked, with (0, 0) on
+    both sides of every slot at or past n_in_tier[..., t]."""
     out = []
     for t, (_, _, slots) in enumerate(tiers):
         active = (torch.arange(slots, dtype=_I32, device=s_usuc.device)
-                  < n_in_tier[t])
-        usuc = dynamic_slice(s_usuc, starts[t], slots)
-        vsvc = dynamic_slice(s_vsvc, starts[t], slots)
+                  < n_in_tier[..., t:t + 1])
+        usuc = dynamic_slice(s_usuc, starts[..., t], slots)
+        vsvc = dynamic_slice(s_vsvc, starts[..., t], slots)
         out.append(tuple(torch.where(active, a, 0) for a in
                          (usuc >> 9, usuc & 511, vsvc >> 9, vsvc & 511)))
     return out
@@ -92,39 +99,51 @@ def tier_windows(sp_xyz, slices, tiers):
 
 def tier_min_d2_ref(sp_xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers
                     ) -> torch.Tensor:
-    """Plain twin: min_d2_planar_ref over each tier's windows, the tiers'
-    results concatenated."""
+    """Plain twin: min_d2_planar_ref over each tier's windows (every
+    frame's slots as rows of one call), the tiers' results concatenated."""
     wins = tier_windows(sp_xyz, tier_slices(s_usuc, s_vsvc, starts,
                                             n_in_tier, tiers), tiers)
-    return torch.cat([min_d2_planar_ref(*pu, *pv) for pu, pv in wins])
+    return torch.cat([
+        min_d2_planar_ref(*(w.reshape(-1, w.shape[-1]) for w in pu + pv)
+                          ).reshape(pu[0].shape[:-1])
+        for pu, pv in wins], dim=-1)
 
 
 def tier_min_d2(sp_xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers
                 ) -> torch.Tensor:
-    """(sum of the tiers' slots,) f32: each slot's min d², tier by tier.
+    """(B, sum of the tiers' slots) f32: each slot's min d², tier by tier.
 
-    sp_xyz (NO, 3) f32 with NO a multiple of 32; s_usuc, s_vsvc (L,) i32
-    packed descriptors; starts, n_in_tier (T,) i32 on the same device,
-    read there (never synced to the host); tiers: T (u_cap, v_cap, slots)
-    triples with slots <= L.
+    sp_xyz (B, NO, 3) f32 with NO a multiple of 32; s_usuc, s_vsvc (B, L)
+    i32 packed descriptors; starts, n_in_tier (B, T) i32 on the same
+    device, read there (never synced to the host); tiers: T (u_cap, v_cap,
+    slots) triples with slots <= L. Without the leading B (one frame) the
+    result has none either.
     """
     if not sp_xyz.is_cuda:
         return tier_min_d2_ref(sp_xyz, s_usuc, s_vsvc, starts, n_in_tier,
                                tiers)
+    if sp_xyz.dim() == 2:
+        return tier_min_d2(sp_xyz[None], s_usuc[None], s_vsvc[None],
+                           starts[None], n_in_tier[None], tiers)[0]
     name = "tier_min_d2"
-    dev = _build.checked(name, ("sp_xyz", sp_xyz, torch.float32, 2),
-                         ("s_usuc", s_usuc, _I32, 1),
-                         ("s_vsvc", s_vsvc, _I32, 1),
-                         ("starts", starts, _I32, 1),
-                         ("n_in_tier", n_in_tier, _I32, 1))
-    no, length, n_t = sp_xyz.shape[0], s_usuc.shape[0], len(tiers)
-    if sp_xyz.shape[1] != 3 or no == 0 or no % V_ROW:
-        raise ValueError(f"{name}: sp_xyz must be (NO, 3) with NO a "
+    dev = _build.checked(name, ("sp_xyz", sp_xyz, torch.float32, 3),
+                         ("s_usuc", s_usuc, _I32, 2),
+                         ("s_vsvc", s_vsvc, _I32, 2),
+                         ("starts", starts, _I32, 2),
+                         ("n_in_tier", n_in_tier, _I32, 2))
+    frames, no = sp_xyz.shape[:2]
+    length, n_t = s_usuc.shape[1], len(tiers)
+    if sp_xyz.shape[2] != 3 or no == 0 or no % V_ROW:
+        raise ValueError(f"{name}: sp_xyz must be (B, NO, 3) with NO a "
                          f"positive multiple of {V_ROW}")
-    if s_vsvc.shape[0] != length or starts.shape[0] != n_t \
-            or n_in_tier.shape[0] != n_t:
-        raise ValueError(f"{name}: s_usuc/s_vsvc must be (L,), starts and "
-                         f"n_in_tier ({n_t},)")
+    if not 0 < frames <= MAX_FRAMES:
+        raise ValueError(f"{name}: 1-{MAX_FRAMES} frames a launch, got "
+                         f"{frames}")
+    if s_usuc.shape[0] != frames or s_vsvc.shape != s_usuc.shape \
+            or starts.shape != (frames, n_t) \
+            or n_in_tier.shape != (frames, n_t):
+        raise ValueError(f"{name}: s_usuc/s_vsvc must be (B, L), starts "
+                         f"and n_in_tier (B, {n_t}), with B = {frames}")
     flat = [int(v) for tier in tiers for v in tier]
     if not 0 < n_t <= MAX_TIERS or any(
             not 0 < s <= length or not 0 <= min(u, v) <= max(u, v) <= MAX_RUN
@@ -132,13 +151,13 @@ def tier_min_d2(sp_xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers
         raise ValueError(f"{name}: tiers must be 1-{MAX_TIERS} (u_cap, "
                          f"v_cap, slots) with caps <= {MAX_RUN} and "
                          f"0 < slots <= {length}")
-    out = torch.empty((sum(s for *_, s in tiers),), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((frames, sum(s for *_, s in tiers)),
+                      dtype=torch.float32, device=dev)
     table = (ctypes.c_int * len(flat))(*flat)
     _build.launch(tier_min_d2, "tier_min_d2_launch", dev, sp_xyz.data_ptr(),
                   no, s_usuc.data_ptr(), s_vsvc.data_ptr(), length,
                   starts.data_ptr(), n_in_tier.data_ptr(), out.data_ptr(),
-                  ctypes.addressof(table), n_t)
+                  ctypes.addressof(table), n_t, frames)
     return out
 
 

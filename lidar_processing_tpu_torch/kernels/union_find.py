@@ -1,12 +1,15 @@
-"""Connected components over a compacted edge list: CUDA kernel + twin.
+"""Connected components over compacted edge lists: CUDA kernel + twin.
 
 Port of ``lidar_processing_tpu/kernels/union_find.py``. Contract:
 labels[i] = min node id reachable from i over the first n_edges edges.
-On a CUDA tensor ``cc_labels`` launches the parallel shared-memory
-hook-and-compress kernel (csrc/union_find.cu, ECL-CC style); on a CPU
-tensor it runs the plain PyTorch twin ``cc_labels_ref``. The labelling is
-canonical, so both give the same array exactly. The TPU kernel's serial
-design lives on as the probe ``kernels/probe_uf.py::uf_serial``.
+The edge arrays may carry a leading frame axis B (the batched step's
+frames): each frame's labels come from its own edges and n_edges, exactly
+as a call for that frame alone. On a CUDA tensor ``cc_labels`` launches
+the parallel shared-memory hook-and-compress kernel (csrc/union_find.cu,
+ECL-CC style), ONE launch of B blocks for B frames; on a CPU tensor it
+runs the plain PyTorch twin ``cc_labels_ref``. The labelling is canonical,
+so both give the same array exactly. The TPU kernel's serial design lives
+on as the probe ``kernels/probe_uf.py::uf_serial``.
 """
 
 from __future__ import annotations
@@ -24,27 +27,33 @@ def cc_labels_ref(eu, ev, n_edges, s_cap: int) -> torch.Tensor:
     """Plain twin: min-label hooking + pointer jumping to a fixpoint.
 
     The formulation of the JAX package's ``cc_labels_xla`` with
-    ``scatter_reduce("amin")`` into a dump slot in place of a dropping
-    scatter. Unlike that twin (which stops after 32 outer rounds) it runs
-    until nothing changes and raises if it has not converged, rather than
-    returning partial labels.
+    ``scatter_reduce("amin")`` into a dump slot per frame in place of a
+    dropping scatter. Unlike that twin (which stops after 32 outer rounds)
+    it runs until nothing changes in any frame and raises if it has not
+    converged, rather than returning partial labels. eu, ev (B, ec) with
+    n_edges (B,), or (ec,) with n_edges ().
     """
+    if eu.dim() == 1:
+        return cc_labels_ref(eu[None], ev[None], n_edges.reshape(1),
+                             s_cap)[0]
     dev = eu.device
-    ec = eu.shape[0]
-    ok = torch.arange(ec, dtype=torch.int32, device=dev) < n_edges
-    uv = torch.cat([eu, ev]).clamp(0, s_cap - 1).long()
-    ok2 = torch.cat([ok, ok])
-    labels = torch.arange(s_cap, dtype=torch.int32, device=dev)
+    frames, ec = eu.shape
+    ok = (torch.arange(ec, dtype=torch.int32, device=dev)
+          < n_edges.reshape(frames, 1))
+    uv = torch.cat([eu, ev], 1).clamp(0, s_cap - 1).long()
+    ok2 = torch.cat([ok, ok], 1)
+    labels = torch.arange(s_cap, dtype=torch.int32,
+                          device=dev).expand(frames, s_cap)
 
     def hook(lab):
-        luv = lab[uv]
-        mn = torch.minimum(luv[:ec], luv[ec:])
-        mn2 = torch.where(ok2, torch.cat([mn, mn]), _IMAX)
+        luv = lab.gather(1, uv)
+        mn = torch.minimum(luv[:, :ec], luv[:, ec:])
+        mn2 = torch.where(ok2, torch.cat([mn, mn], 1), _IMAX)
         tgt = torch.where(ok2, luv, s_cap).long()
-        buf = torch.cat([lab, lab.new_full((1,), _IMAX)])
-        lab = buf.scatter_reduce(0, tgt, mn2, "amin")[:s_cap]
+        buf = torch.cat([lab, lab.new_full((frames, 1), _IMAX)], 1)
+        lab = buf.scatter_reduce(1, tgt, mn2, "amin")[:, :s_cap]
         for _ in range(4):
-            lab = lab[lab.long()]
+            lab = lab.gather(1, lab.long())
         return lab
 
     labels = hook(labels)
@@ -53,16 +62,19 @@ def cc_labels_ref(eu, ev, n_edges, s_cap: int) -> torch.Tensor:
     for _ in range(s_cap + 1):
         nxt = hook(hook(labels))
         if torch.equal(nxt, labels):
-            return labels[labels.long()]
+            return labels.gather(1, labels.long())
         labels = nxt
     raise RuntimeError("cc_labels_ref: hooking did not converge")
 
 
-def launch_labels(fn, entry: str, edges, n_edges, s_cap: int
-                  ) -> torch.Tensor:
+def launch_labels(fn, entry: str, edges, n_edges, s_cap: int,
+                  batched: bool = False) -> torch.Tensor:
     """Check and launch a union-find C entry point taking the edge arrays
-    `edges` ((name, (ec,) int32 tensor) pairs), n_edges (() int32, read on
-    the device, never synced to the host), the labels and (ec, s_cap)."""
+    `edges` ((name, int32 tensor) pairs), n_edges (read on the device,
+    never synced to the host), the labels, then (ec, s_cap): each edge
+    array (ec,) with n_edges (), labels (s_cap,); or, with `batched`,
+    (B, ec) with n_edges (B,), labels (B, s_cap), the entry point taking B
+    before ec (one launch for the B graphs)."""
     name, dev = fn.__name__, edges[0][1].device
     for what, t in (*edges, ("n_edges", n_edges)):
         if t.dtype != torch.int32 or t.device != dev:
@@ -70,30 +82,39 @@ def launch_labels(fn, entry: str, edges, n_edges, s_cap: int
                              f"{t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-    ec = edges[0][1].shape
-    if len(ec) != 1 or any(t.shape != ec for _, t in edges) \
-            or n_edges.numel() != 1:
-        raise ValueError(f"{name}: edge arrays must be (ec,), n_edges ()")
+    shape = edges[0][1].shape
+    lead = tuple(shape[:1]) if batched else ()
+    if len(shape) != len(lead) + 1 or any(t.shape != shape for _, t in edges) \
+            or n_edges.shape != lead:
+        raise ValueError(f"{name}: edge arrays must be "
+                         f"{'(B, ec)' if batched else '(ec,)'}, n_edges "
+                         f"{'(B,)' if batched else '()'}")
     if not 0 < s_cap * 4 <= _SMEM_MAX:
         raise ValueError(f"{name}: s_cap={s_cap} labels do not fit a "
                          f"block's shared memory ({_SMEM_MAX} B)")
-    out = torch.empty((s_cap,), dtype=torch.int32, device=dev)
+    out = torch.empty((*lead, s_cap), dtype=torch.int32, device=dev)
     _build.launch(fn, entry, dev, *(t.data_ptr() for _, t in edges),
-                  n_edges.data_ptr(), out.data_ptr(), ec[0], s_cap)
+                  n_edges.data_ptr(), out.data_ptr(), *lead, shape[-1],
+                  s_cap)
     return out
 
 
 def cc_labels(eu, ev, n_edges, s_cap: int) -> torch.Tensor:
-    """labels (s_cap,) i32: min node id per component.
+    """labels (B, s_cap) i32: min node id per component, per frame.
 
-    eu, ev: (ec,) int32 edge endpoints; n_edges: () int32 tensor on the
-    same device. A CUDA input launches csrc/union_find.cu and counts the
-    launch in ``cc_labels.launches``; a CPU input runs the twin.
+    eu, ev: (B, ec) int32 edge endpoints; n_edges: (B,) int32 on the same
+    device; without the leading B (one frame: (ec,) and ()) the result has
+    none either. A CUDA input launches csrc/union_find.cu once for the B
+    frames and counts the launch in ``cc_labels.launches``; a CPU input
+    runs the twin.
     """
     if not eu.is_cuda:
         return cc_labels_ref(eu, ev, n_edges, s_cap)
+    if eu.dim() == 1:
+        return cc_labels(eu[None], ev[None], n_edges.reshape(-1), s_cap)[0]
     return launch_labels(cc_labels, "union_find_launch",
-                         (("eu", eu), ("ev", ev)), n_edges, s_cap)
+                         (("eu", eu), ("ev", ev)), n_edges, s_cap,
+                         batched=True)
 
 
 cc_labels.launches = 0

@@ -6,9 +6,11 @@ per-point scatter into per-cluster clouds, ref: src/processor.cpp:180-200,
 becomes a slice), and small-cluster convex hulls run for all clusters at
 once as a dense successor table walked for ``max_out`` steps
 (ref: src/polygon_simplification.cpp:96-115, '<20 points => convex').
-The JAX package's vmap over clusters is a written-out batch dimension,
-chunked over clusters so the (C, P, P, P) orientation transients stay
-small on the card and in the CPU tests.
+The JAX package's vmaps over frames and clusters are written-out batch
+dimensions: the successor tables are built a chunk of clusters at a time
+(every frame of the batch in each chunk) so the (B, C, P, P, P)
+orientation transients stay bounded on the card and in the CPU tests,
+then one walk runs over every cluster of every frame.
 """
 
 from __future__ import annotations
@@ -17,16 +19,17 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..types import PolygonBatch
-from .scan_utils import run_starts, sort_by
+from ..types import PolygonBatch, frame_of
+from .scan_utils import run_starts, sort_by, take_rows
 
 _I32 = torch.int32
 _SR = 32              # row width for aligned window gathers
-_HULL_CHUNK = 128     # clusters per successor-table batch
+_HULL_CHUNK = 128     # clusters of each frame per successor-table batch
 
 
 class LabelRuns(NamedTuple):
-    """Label-sorted cloud + per-cluster run table.
+    """Label-sorted cloud + per-cluster run table (per frame; a batch adds
+    a leading frame axis B to every field).
 
     sorted_xyz: (N, 3) f32 — points ordered by cluster id (within a
                 cluster, original point order); non-cluster points last.
@@ -50,99 +53,106 @@ class LabelRuns(NamedTuple):
 def label_runs_presorted(xyz: torch.Tensor, labels: torch.Tensor,
                          orig: torch.Tensor, num_slots: int,
                          orig_bound: int = 0) -> LabelRuns:
-    """Sort a compacted labeled buffer into contiguous per-cluster runs.
+    """Sort compacted labeled buffers into contiguous per-cluster runs.
 
+    xyz (B, N, 3), labels and orig (B, N), or one frame without the B.
     `orig` restores the within-cluster original point order (secondary
     key); label and orig pack into ONE int32 key when the ranges allow.
     """
-    n = xyz.shape[0]
+    if xyz.dim() == 2:
+        return frame_of(label_runs_presorted(xyz[None], labels[None],
+                                             orig[None], num_slots,
+                                             orig_bound), 0)
+    n = xyz.shape[1]
     dev = xyz.device
     valid = (labels >= 0) & (labels < num_slots)
     key = torch.where(valid, labels, num_slots)
     shift = max(17, ((orig_bound or 4 * n) - 1).bit_length())
     if (num_slots + 1) << shift <= (1 << 31):
         packed = key * (1 << shift) + orig
-        pk, sx_, sy_, sz_ = sort_by(packed, xyz[:, 0], xyz[:, 1], xyz[:, 2])
+        pk, sx_, sy_, sz_ = sort_by(packed, xyz[..., 0], xyz[..., 1],
+                                    xyz[..., 2])
         skey = pk >> shift
     else:
-        skey, _, sx_, sy_, sz_ = sort_by((key, orig), xyz[:, 0], xyz[:, 1],
-                                         xyz[:, 2])
-    sorted_xyz = torch.stack([sx_, sy_, sz_], dim=1)
-    num = torch.where(valid, labels, -1).amax() + 1
-    num = torch.clamp(num, max=num_slots)
-    overflow = (labels >= num_slots).sum(dtype=_I32)
+        skey, _, sx_, sy_, sz_ = sort_by((key, orig), xyz[..., 0],
+                                         xyz[..., 1], xyz[..., 2])
+    sorted_xyz = torch.stack([sx_, sy_, sz_], dim=-1)
+    num = torch.where(valid, labels, -1).amax(1, keepdim=True) + 1
+    num = torch.clamp(num, max=num_slots)                     # (B,1)
+    overflow = (labels >= num_slots).sum(1, dtype=_I32)
     # cluster ids are COMPACT (0..num-1, each with >= 1 point), so starts
     # come from one run_starts sort and counts from start differences
-    n_lab = valid.sum(dtype=_I32)
-    prev = torch.cat([skey.new_full((1,), -1), skey[:-1]])
+    n_lab = valid.sum(1, keepdim=True, dtype=_I32)
+    prev = torch.cat([skey.new_full((skey.shape[0], 1), -1), skey[:, :-1]],
+                     1)
     new_run = (skey != prev) & (skey < num_slots)
     # compactness guard: a gappy caller would silently shift every later
     # start — fail loudly through the overflow counter instead
-    n_runs = new_run.sum(dtype=_I32)
+    n_runs = new_run.sum(1, keepdim=True, dtype=_I32)
     starts_raw = run_starts(new_run, num_slots)
     slot = torch.arange(num_slots, dtype=_I32, device=dev)
     slot_valid = slot < num
-    nxt = torch.cat([starts_raw[1:], starts_raw.new_full((1,), n)])
+    nxt = torch.cat([starts_raw[:, 1:],
+                     starts_raw.new_full((starts_raw.shape[0], 1), n)], 1)
     end = torch.where(slot == num - 1, n_lab, nxt)
     starts = torch.where(slot_valid, starts_raw, n)
     counts = torch.where(slot_valid, torch.clamp(end - starts_raw, min=0), 0)
-    overflow = overflow + (n_runs != num).to(_I32)
-    return LabelRuns(sorted_xyz, skey, starts, counts, num, overflow)
+    overflow = overflow + (n_runs != num)[:, 0].to(_I32)
+    return LabelRuns(sorted_xyz, skey, starts, counts, num[:, 0], overflow)
 
 
 def gather_runs(sorted_xyz: torch.Tensor, starts: torch.Tensor,
                 counts: torch.Tensor, max_points: int) -> torch.Tensor:
-    """Gather contiguous runs into a front-packed (C, max_points, 3) batch
-    (whole 32-point rows, then a local realignment)."""
-    n = sorted_xyz.shape[0]
+    """Gather contiguous runs into a front-packed (..., C, max_points, 3)
+    batch (whole 32-point rows, then a local realignment): sorted_xyz
+    (..., N, 3), starts and counts (..., C)."""
+    n = sorted_xyz.shape[-2]
     if n % _SR:
         raise ValueError(f"sorted buffer of {n} rows is not a multiple of "
                          f"{_SR}")
     dev = sorted_xyz.device
-    c = starts.shape[0]
-    srows = sorted_xyz.reshape(n // _SR, _SR, 3)
+    srows = sorted_xyz.reshape(*sorted_xyz.shape[:-2], n // _SR, _SR * 3)
     nrow = max_points // _SR + 1
     sr0 = starts // _SR
-    ridx = torch.clamp(sr0[:, None] + torch.arange(nrow, dtype=_I32,
-                                                   device=dev)[None, :],
+    ridx = torch.clamp(sr0[..., None] + torch.arange(nrow, dtype=_I32,
+                                                     device=dev),
                        0, n // _SR - 1)
-    wide = srows[ridx.long()].reshape(c, nrow * _SR, 3)
-    off = (starts - sr0 * _SR)[:, None]
-    lane = torch.arange(max_points, dtype=_I32, device=dev)[None, :] + off
-    pts = torch.take_along_dim(wide, lane.long()[..., None].expand(-1, -1, 3),
-                               dim=1)
-    keep = (torch.arange(max_points, dtype=_I32, device=dev)[None, :]
-            < torch.clamp(counts, max=max_points)[:, None])
+    wide = take_rows(srows, ridx).reshape(*starts.shape, nrow * _SR, 3)
+    off = (starts - sr0 * _SR)[..., None]
+    lane = torch.arange(max_points, dtype=_I32, device=dev) + off
+    pts = torch.take_along_dim(
+        wide, lane.long()[..., None].expand(*lane.shape, 3), dim=-2)
+    keep = (torch.arange(max_points, dtype=_I32, device=dev)
+            < torch.clamp(counts, max=max_points)[..., None])
     return torch.where(keep[..., None], pts, 0.0)
 
 
-def _convex_hull_small(xy: torch.Tensor, count: torch.Tensor, max_out: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Strictly-convex CCW hulls of a batch of padded point sets.
+def _successors(xy: torch.Tensor, count: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gift wrapping's dense successor table for a batch of padded point
+    sets.
 
-    xy: (B, P, 2), count: (B,). Gift wrapping as a dense successor table:
-    for every potential current vertex c, the next CCW hull vertex is the
-    q with no alive k strictly right of c->q (farthest-on-ray tie-break
-    skips collinear interiors); the walk from the lowest (y, then x) point
-    then emits up to max_out vertices. Returns (vertex indices (B, max_out)
-    with -1 padding, vertex counts (B,)).
+    xy: (K, P, 2), count: (K,). For every potential current vertex c, the
+    next CCW hull vertex is the q with no alive k strictly right of c->q
+    (farthest-on-ray tie-break skips collinear interiors). Returns (start
+    (K,): the lowest (y, then x) point, a guaranteed hull vertex; succ
+    (K, P); has_next (K, P)).
     """
-    b, p = xy.shape[:2]
+    p = xy.shape[1]
     dev = xy.device
     idx = torch.arange(p, dtype=_I32, device=dev)
-    alive = idx[None, :] < count[:, None]                    # (B,P)
+    alive = idx[None, :] < count[:, None]                    # (K,P)
     big = 3.4e38
 
-    # start: lowest (y, then x) point — guaranteed hull vertex
     ykey = torch.where(alive, xy[..., 1], big)
     min_y = ykey.amin(1)
     cand = alive & (xy[..., 1] == min_y[:, None])
     start = torch.argmin(torch.where(cand, xy[..., 0], big), dim=1).to(_I32)
 
-    d = xy[:, None, :, :] - xy[:, :, None, :]          # (B, P cur, P other, 2)
-    dist2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]        # (B,P,P)
+    d = xy[:, None, :, :] - xy[:, :, None, :]          # (K, P cur, P other, 2)
+    dist2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]        # (K,P,P)
     cross = (d[:, :, :, None, 0] * d[:, :, None, :, 1]
-             - d[:, :, :, None, 1] * d[:, :, None, :, 0])  # (B,cur,q,k)
+             - d[:, :, :, None, 1] * d[:, :, None, :, 0])  # (K,cur,q,k)
     # the tolerance scales with |d_q||d_k|: collinear pairs produce
     # O(eps*|dq||dk|) noise of either sign
     tol = 1e-5 * torch.sqrt(torch.clamp(
@@ -151,13 +161,20 @@ def _convex_hull_small(xy: torch.Tensor, count: torch.Tensor, max_out: int
     bad = (cross < -tol) & (~self_or_dead)[:, :, None, :]
     strictly_right_none = ~(bad & (~self_or_dead)[:, :, :, None]).any(3)
     score = torch.where(strictly_right_none & ~self_or_dead, dist2, -1.0)
-    succ = torch.argmax(score, dim=2).to(_I32)               # (B,P)
-    has_next_tab = score.amax(2) > 0.0                       # (B,P)
+    succ = torch.argmax(score, dim=2).to(_I32)               # (K,P)
+    has_next = score.amax(2) > 0.0                           # (K,P)
+    return start, succ, has_next
 
-    # walk the successor chain (the sequential gift-wrap's state machine)
+
+def _walk(start: torch.Tensor, succ: torch.Tensor, has_next_tab: torch.Tensor,
+          count: torch.Tensor, max_out: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Walk each successor chain from its start (the sequential
+    gift-wrap's state machine) for up to max_out vertices. Returns (vertex
+    indices (K, max_out) with -1 padding, vertex counts (K,))."""
     verts = []
     cur, done = start, count < 1
-    n_emitted = torch.zeros(b, dtype=_I32, device=dev)
+    n_emitted = torch.zeros_like(count, dtype=_I32)
     for _ in range(max_out):
         out = torch.where(done, -1, cur)
         verts.append(out)
@@ -172,23 +189,29 @@ def _convex_hull_small(xy: torch.Tensor, count: torch.Tensor, max_out: int
 
 def convex_hulls_batched(xy: torch.Tensor, counts: torch.Tensor,
                          max_out: int) -> PolygonBatch:
-    """CCW convex hulls for a batch of padded clusters.
+    """CCW convex hulls (strictly convex) for batches of padded clusters.
 
-    xy: (C, P, 2); counts: (C,). Returns a PolygonBatch with up to max_out
-    vertices per hull (indices resolved to coordinates). Runs
-    _HULL_CHUNK clusters at a time: the successor table's (P, P, P)
-    transients grow cubically in P.
+    xy: (..., C, P, 2); counts: (..., C). Returns a PolygonBatch with up
+    to max_out vertices per hull (indices resolved to coordinates) and the
+    same leading axes. The successor tables are built _HULL_CHUNK clusters
+    of each frame at a time (their (P, P, P) transients grow cubically in
+    P); the walk then runs once over every cluster.
     """
-    p = xy.shape[1]
-    idx_parts, n_parts = [], []
-    for lo in range(0, xy.shape[0], _HULL_CHUNK):
-        vi, n = _convex_hull_small(xy[lo:lo + _HULL_CHUNK],
-                                   counts[lo:lo + _HULL_CHUNK], max_out)
-        idx_parts.append(vi)
-        n_parts.append(n)
-    verts_idx = torch.cat(idx_parts)
+    lead, (c, p) = xy.shape[:-3], xy.shape[-3:-1]
+    xyf = xy.reshape(-1, c, p, 2)
+    cf = counts.reshape(-1, c)
+    parts = [_successors(xyf[:, lo:lo + _HULL_CHUNK].reshape(-1, p, 2),
+                         cf[:, lo:lo + _HULL_CHUNK].reshape(-1))
+             for lo in range(0, c, _HULL_CHUNK)]
+    # back to (frames, C) order: chunk k holds clusters [128k, 128k + 128)
+    start, succ, has_next = (
+        torch.cat([part[i].reshape(xyf.shape[0], -1, *part[i].shape[1:])
+                   for part in parts], 1).reshape(-1, *parts[0][i].shape[1:])
+        for i in range(3))
+    verts_idx, n_out = _walk(start, succ, has_next, cf.reshape(-1), max_out)
+    verts_idx = verts_idx.reshape(*lead, c, max_out)
     coords = torch.take_along_dim(
         xy, torch.clamp(verts_idx, 0, p - 1).long()[..., None].expand(
-            -1, -1, 2), dim=1)
+            *verts_idx.shape, 2), dim=-2)
     coords = torch.where((verts_idx >= 0)[..., None], coords, 0.0)
-    return PolygonBatch(coords, torch.cat(n_parts))
+    return PolygonBatch(coords, n_out.reshape(*lead, c))

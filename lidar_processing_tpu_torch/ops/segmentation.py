@@ -1,18 +1,26 @@
-"""GPF ground segmentation — masked, fixed-shape, batched over partitions.
+"""GPF ground segmentation — masked, fixed-shape, batched over partitions
+and frames.
 
 Port of ``lidar_processing_tpu/ops/segmentation.py`` (Zermas-style Ground
 Plane Fitting, ref: src/segmentation.cpp:62-345): one sort by x gives the
 partition ids, a second stable sort by (partition, z) makes every
 partition a contiguous ascending-z run, seed selection becomes prefix
-arithmetic, and every partition is fitted at once over a written-out
-partition batch dimension (the JAX package's vmap). The moment products
-are ``torch.matmul``/``einsum`` in full float32 (TF32 is off, see the
-package ``__init__``).
+arithmetic, and every partition of every frame is fitted at once over
+written-out (frame, partition) batch axes (the JAX package's vmaps).
 
-The f32 reductions (the seed prefix sum, the moments, the eigen-solve)
-run in a different order than XLA's, so labels of points lying on the
-0.3 m threshold may differ from the JAX package's; that is the only place
-the two packages may disagree.
+A frame of a batch gives bit for bit what it gives alone, on the card as
+on the CPU, so the f32 reductions are written so that their order does
+not depend on the batch: the GPF moments are sums over a fixed pairwise
+tree of elementwise adds (``_tree_sum``; a matmul or ``torch.sum`` picks
+its reduction order by shape, and cuBLAS its kernel by batch count), the
+signed distances ``x*nx + y*ny + z*nz`` are one product and two fused
+multiply-adds (what the CPU's float32 matmul computes for an inner size
+of 3), and the LPR prefix sum runs in float64, rounded to float32 (what
+the CPU's float32 cumsum computes, whose accumulator is a double).
+
+Those reductions still run in a different order than XLA's, so labels of
+points lying on the 0.3 m threshold may differ from the JAX package's;
+that is the only place the two packages may disagree.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch
 
 from ..config import SegmentationConfig
 from ..types import (Plane, SegmentationResult, SEG_GROUND, SEG_OBSTACLE,
-                     SEG_UNKNOWN)
+                     SEG_UNKNOWN, frame_of)
 from .eig3 import smallest_eigenvector_3x3
 from .scan_utils import sort_by
 
@@ -36,8 +44,23 @@ def _f32(value: float, device) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=device)
 
 
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as a fixed pairwise tree (halves added
+    elementwise, zero-padded to a power of two): the same additions in the
+    same order whatever the leading shape or the device."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.cat([x, x.new_zeros(*x.shape[:-1], width - n)], -1)
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 class SortedSegmentation(NamedTuple):
-    """gpf output in (partition, z)-sorted space (no unsort).
+    """gpf output in (partition, z)-sorted space (no unsort). Per frame;
+    a batch adds a leading frame axis B to every field.
 
     xyz:    (N, 3) f32 cloud sorted by (partition id, z); invalid points
             and the tail-drop quirk's points sort last.
@@ -59,13 +82,14 @@ class SortedSegmentation(NamedTuple):
 def _seed_runs(z_s: torch.Tensor, per_seg: torch.Tensor, num_p: int,
                cfg: SegmentationConfig
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Initial seed mask over the (partition, z)-sorted cloud.
+    """Initial seed mask over each frame's (partition, z)-sorted cloud.
 
     Implements ref: src/segmentation.cpp:151-217 per partition run:
     partition p occupies sorted ranks [p*per_seg, (p+1)*per_seg), ascending
-    in z. Returns (seeds (N,) bool, seg_of_rank (N,) i32 with -1 padding).
+    in z. z_s (B, N), per_seg (B, 1). Returns (seeds (B, N) bool,
+    seg_of_rank (B, N) i32 with -1 padding).
     """
-    n = z_s.shape[0]
+    n = z_s.shape[-1]
     dev = z_s.device
     pos = torch.arange(n, dtype=_I32, device=dev)
     in_any = pos < per_seg * num_p
@@ -74,14 +98,15 @@ def _seed_runs(z_s: torch.Tensor, per_seg: torch.Tensor, num_p: int,
 
     z_min_cut = _f32(-cfg.z_min_outlier_scale * cfg.sensor_height_m, dev)
     k_cfg = min(cfg.number_of_lower_point_representatives, n)
-    csum = torch.cumsum(z_s, 0)
+    csum = torch.cumsum(z_s.double(), -1).float()
 
     below = (z_s <= z_min_cut) & in_any
     # per-partition count of below-cutoff points (each partition's below
     # points form the PREFIX of its ascending-z run)
     seg_iota = torch.arange(num_p, dtype=_I32, device=dev)
-    below_per = (below[None, :] & (seg_of_rank[None, :] == seg_iota[:, None])
-                 ).sum(1, dtype=_I32)                    # (P,)
+    below_per = (below[:, None, :]
+                 & (seg_of_rank[:, None, :] == seg_iota[:, None])
+                 ).sum(-1, dtype=_I32)                    # (B,P)
 
     start = seg_iota * per_seg
     n_p = torch.where(per_seg > 0, per_seg, 0)
@@ -95,19 +120,20 @@ def _seed_runs(z_s: torch.Tensor, per_seg: torch.Tensor, num_p: int,
     # LPR mean via prefix sums over the ascending-z runs
     hi = torch.clamp(s_kept + k_eff - 1, 0, n - 1).long()
     lo = torch.clamp(s_kept - 1, 0, n - 1).long()
-    z_sum = csum[hi] - torch.where(s_kept > 0, csum[lo], 0.0)
+    z_sum = csum.gather(-1, hi) - torch.where(s_kept > 0,
+                                              csum.gather(-1, lo), 0.0)
     z_mean = z_sum / torch.clamp(k_eff, min=1).float()
     z_max_cut = z_mean + _f32(cfg.initial_seed_threshold, dev)
 
     # quirk: if no kept point exceeds the threshold the seed set is EMPTY;
     # the kept run's max z is its last element
-    run_max = z_s[torch.clamp(start + n_p - 1, 0, n - 1).long()]
+    run_max = z_s.gather(-1, torch.clamp(start + n_p - 1, 0, n - 1).long())
     any_above = run_max > z_max_cut
-    seg_ok = (n_kept > 0) & any_above                   # (P,)
+    seg_ok = (n_kept > 0) & any_above                   # (B,P)
 
     sel = torch.clamp(seg_of_rank, 0, num_p - 1).long()
-    seeds = (in_any & (pos >= s_kept[sel]) & (z_s <= z_max_cut[sel])
-             & seg_ok[sel])
+    seeds = (in_any & (pos >= s_kept.gather(-1, sel))
+             & (z_s <= z_max_cut.gather(-1, sel)) & seg_ok.gather(-1, sel))
     return seeds, seg_of_rank
 
 
@@ -115,112 +141,127 @@ def _fit_partition(
     pts: torch.Tensor, seg_mask: torch.Tensor, seeds: torch.Tensor,
     cfg: SegmentationConfig
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """GPF iterations for a batch of partitions (any point order).
+    """GPF iterations for every partition of every frame (any point order).
 
-    pts: (N,3) cloud; seg_mask, seeds: (P,N) partition membership and
-    initial ground masks. Returns (labels (P,N) int32 valid only under
-    seg_mask, normals (P,3), d (P,), plane_valid (P,)).
+    pts: (B,N,3) clouds; seg_mask, seeds: (B,P,N) partition membership and
+    initial ground masks. Returns (labels (B,P,N) int32 valid only under
+    seg_mask, normals (B,P,3), d (B,P), plane_valid (B,P)).
     """
-    num_p = seg_mask.shape[0]
+    frames, num_p = seg_mask.shape[:2]
     dev = pts.device
-    seg_n = seg_mask.sum(1, dtype=_I32)
+    pt = pts.transpose(1, 2).contiguous()[:, None]         # (B,1,3,N)
+    seg_n = seg_mask.sum(-1, dtype=_I32)
     odt = _f32(cfg.orthogonal_distance_threshold, dev)
 
     ground = seeds
-    failed = torch.zeros(num_p, dtype=torch.bool, device=dev)
-    normal = torch.cat([torch.zeros((num_p, 2), device=dev),
-                        torch.ones((num_p, 1), device=dev)], dim=1)
-    d = torch.zeros(num_p, device=dev)
+    failed = torch.zeros((frames, num_p), dtype=torch.bool, device=dev)
+    normal = torch.cat([torch.zeros((frames, num_p, 2), device=dev),
+                        torch.ones((frames, num_p, 1), device=dev)], dim=-1)
+    d = torch.zeros((frames, num_p), device=dev)
     for _ in range(cfg.number_of_iterations):
-        cnt = ground.sum(1, dtype=_I32)
+        cnt = ground.sum(-1, dtype=_I32)
         failed_now = failed | (cnt < 3)
         cnt_f = torch.clamp(cnt, min=3).float()
 
-        w = ground.float()                                     # (P,N)
+        w = ground.float()[:, :, None, :]                  # (B,P,1,N)
         # two-pass masked moments: center on the masked mean first so the
-        # covariance product does not cancel catastrophically in f32
-        s1 = w @ pts                                           # (P,3)
-        centroid = s1 / cnt_f[:, None]
-        xc = pts[None, :, :] - centroid[:, None, :]            # (P,N,3)
-        s1c = torch.einsum("pn,pni->pi", w, xc)
-        s2c = torch.einsum("pni,pnj->pij", xc * w[:, :, None], xc)
-        cov = ((s2c - s1c[:, :, None] * s1c[:, None, :] / cnt_f[:, None, None])
-               / torch.clamp(cnt_f - 1.0, min=1.0)[:, None, None])
+        # covariance sum does not cancel catastrophically in f32
+        s1 = _tree_sum(w * pt)                             # (B,P,3)
+        centroid = s1 / cnt_f[..., None]
+        xc = pt - centroid[..., None]                      # (B,P,3,N)
+        xw = xc * w
+        # one tree for s1c (3) and s2c (3x3): sum w*xc_i, sum (xc_i*w)*xc_j
+        s = _tree_sum(torch.cat([xw, (xw[:, :, :, None] * xc[:, :, None]
+                                      ).flatten(2, 3)], dim=2))
+        s1c, s2c = s[..., :3], s[..., 3:].unflatten(-1, (3, 3))
+        cov = ((s2c - s1c[..., :, None] * s1c[..., None, :]
+                / cnt_f[..., None, None])
+               / torch.clamp(cnt_f - 1.0, min=1.0)[..., None, None])
 
-        n_vec = smallest_eigenvector_3x3(cov)                  # (P,3)
-        failed_now = failed_now | ~torch.isfinite(n_vec).all(1)
-        d_new = (n_vec * centroid).sum(1)
-        dist = (pts @ n_vec.T).T - d_new[:, None]              # (P,N)
+        n_vec = smallest_eigenvector_3x3(cov)              # (B,P,3)
+        failed_now = failed_now | ~torch.isfinite(n_vec).all(-1)
+        nc = n_vec * centroid
+        d_new = nc[..., 0] + nc[..., 1] + nc[..., 2]
+        nv = n_vec[..., None]                              # (B,P,3,1)
+        dist = torch.addcmul(torch.addcmul(pt[:, :, 0] * nv[:, :, 0],
+                                           pt[:, :, 1], nv[:, :, 1]),
+                             pt[:, :, 2], nv[:, :, 2]) - d_new[..., None]
         # SIGNED comparison (ref: src/segmentation.cpp:299); ||n|| == 1
         new_ground = seg_mask & (dist < odt)
 
-        ground = torch.where(failed_now[:, None], ground, new_ground)
-        normal = torch.where(failed_now[:, None], normal, n_vec)
+        ground = torch.where(failed_now[..., None], ground, new_ground)
+        normal = torch.where(failed_now[..., None], normal, n_vec)
         d = torch.where(failed_now, d, d_new)
         failed = failed_now
 
     labels = torch.where(ground, SEG_GROUND, SEG_OBSTACLE).to(_I32)
-    labels = torch.where(failed[:, None], SEG_OBSTACLE, labels)
+    labels = torch.where(failed[..., None], SEG_OBSTACLE, labels)
     # <3-point partitions stay UNKNOWN (ref: src/segmentation.cpp:224-229)
     too_small = seg_n < 3
-    labels = torch.where(too_small[:, None], SEG_UNKNOWN, labels)
+    labels = torch.where(too_small[..., None], SEG_UNKNOWN, labels)
     plane_valid = ~failed & ~too_small
     return labels, normal, d, plane_valid
 
 
 def gpf_segment_sorted(xyz: torch.Tensor, mask: torch.Tensor,
                        cfg: SegmentationConfig) -> SortedSegmentation:
-    """Segment a padded cloud; results stay in (partition, z)-sorted space.
+    """Segment padded clouds; results stay in (partition, z)-sorted space.
 
-    xyz: (N,3) float32 padded cloud; mask: (N,) bool validity.
+    xyz: (B,N,3) float32 padded clouds; mask: (B,N) bool validity. One
+    frame without the leading B gives a result without it.
     """
+    if xyz.dim() == 2:
+        return frame_of(gpf_segment_sorted(xyz[None], mask[None], cfg), 0)
     num_p = cfg.number_of_planar_partitions
-    n_pts = xyz.shape[0]
+    frames, n_pts = xyz.shape[:2]
     dev = xyz.device
+    iota = torch.arange(n_pts, dtype=_I32, device=dev)
 
     # sort 1: by x — partition membership is x-rank // per_seg
     # (ref: src/segmentation.cpp:104-149); the coordinates and original
     # index ride along
-    sort_key = torch.where(mask, xyz[:, 0], _BIG)
+    sort_key = torch.where(mask, xyz[..., 0], _BIG)
     _, sx_, sy_, sz_, order = sort_by(
-        sort_key, xyz[:, 0], xyz[:, 1], xyz[:, 2],
-        torch.arange(n_pts, dtype=_I32, device=dev))
+        sort_key, xyz[..., 0], xyz[..., 1], xyz[..., 2],
+        iota.expand(frames, n_pts))
 
-    n_valid = mask.sum(dtype=_I32)
+    n_valid = mask.sum(-1, keepdim=True, dtype=_I32)     # (B,1)
     per_seg = n_valid // num_p
-    ranks = torch.arange(n_pts, dtype=_I32, device=dev)
-    seg_ids = torch.where(ranks < per_seg * num_p,
-                          ranks // torch.clamp(per_seg, min=1), num_p)
+    seg_ids = torch.where(iota < per_seg * num_p,
+                          iota // torch.clamp(per_seg, min=1), num_p)
     seg_ids = torch.where(per_seg > 0, seg_ids, num_p)
     # tail-drop-quirk points (valid, UNKNOWN) get key num_p; padding rows
     # key num_p + 1 so valid points stay in sorted ranks [0, n_valid)
-    seg_key = torch.where(ranks < n_valid, seg_ids, num_p + 1)
+    seg_key = torch.where(iota < n_valid, seg_ids, num_p + 1)
 
     # sort 2: by (partition, z), stable — every partition becomes a
     # contiguous run ascending in z (ref: src/segmentation.cpp:151-217)
     _, pz, px, py, porig = sort_by((seg_key, sz_), sx_, sy_, order)
-    sp = torch.stack([px, py, pz], dim=1)
+    sp = torch.stack([px, py, pz], dim=-1)
 
     seeds, seg_of_rank = _seed_runs(pz, per_seg, num_p, cfg)
-    seg_masks = seg_of_rank[None, :] == torch.arange(
-        num_p, dtype=_I32, device=dev)[:, None]
+    seg_masks = seg_of_rank[:, None, :] == torch.arange(
+        num_p, dtype=_I32, device=dev)[:, None]          # (B,P,N)
     labels_p, normals, ds, valids = _fit_partition(
-        sp, seg_masks, seg_masks & seeds[None, :], cfg)
+        sp, seg_masks, seg_masks & seeds[:, None, :], cfg)
 
     # combine partitions: each sorted position belongs to at most one
-    labels_sorted = torch.full((n_pts,), SEG_UNKNOWN, dtype=_I32, device=dev)
+    labels_sorted = torch.full((frames, n_pts), SEG_UNKNOWN, dtype=_I32,
+                               device=dev)
     for s in range(num_p):
-        labels_sorted = torch.where(seg_masks[s], labels_p[s], labels_sorted)
+        labels_sorted = torch.where(seg_masks[:, s], labels_p[:, s],
+                                    labels_sorted)
 
-    valid_sorted = ranks < n_valid
+    valid_sorted = iota < n_valid
     return SortedSegmentation(sp, labels_sorted, porig, valid_sorted,
                               Plane(normals, ds), valids)
 
 
 def gpf_segment(xyz: torch.Tensor, mask: torch.Tensor,
                 cfg: SegmentationConfig) -> SegmentationResult:
-    """Segment a padded cloud into GROUND/OBSTACLE/UNKNOWN, with labels in
-    the ORIGINAL point order plus the fitted planes per partition."""
+    """Segment padded clouds into GROUND/OBSTACLE/UNKNOWN, with labels in
+    the ORIGINAL point order plus the fitted planes per partition. xyz
+    (B,N,3) and mask (B,N), or one frame without the B."""
     ss = gpf_segment_sorted(xyz, mask, cfg)
     # ss.orig is a permutation of [0, n): unsort by sorting on it
     _, labels = sort_by(ss.orig, ss.labels)

@@ -16,6 +16,12 @@ The device step has no host syncs: no ``.item()``, no ``nonzero``, no
 boolean-mask indexing and no Python branch on tensor values — every shape
 is static and caps count their overflow, which is what lets the port
 match the JAX package bit for bit.
+
+The step runs on a batch of B frames (``device_frame_step_batched``, the
+counterpart of ``jax.vmap(device_frame_step)``): every op and both kernels
+take the frame axis, so a batch costs one launch of each op, and every
+counter stays per frame. Frame b of a batch gives bit for bit what it
+gives alone; the per-frame ``device_frame_step`` is the batch of one.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from ..ops.scan_utils import compact_mask, scatter_drop, set_drop, sort_by
 from ..ops.segmentation import gpf_segment_sorted
 from ..ops.simplify import simplify_ring
 from ..types import (CLUSTER_UNDEFINED, ClusteringResult, PolygonBatch,
-                     SegmentationResult, SEG_OBSTACLE)
+                     SegmentationResult, SEG_OBSTACLE, frame_of,
+                     map_leaves)
 
 _I32 = torch.int32
 
@@ -51,6 +58,9 @@ NUM_SLOTS = SMALL_C + LARGE_C   # cluster-id table size
 
 
 class FrameResult(NamedTuple):
+    """One frame's device results; a batch adds a leading frame axis B to
+    every leaf (counters (B,))."""
+
     seg: SegmentationResult
     clustering: ClusteringResult
     runs: LabelRuns               # label-sorted cloud + per-cluster runs
@@ -78,21 +88,22 @@ class FrameOutputs(NamedTuple):
     intensity: Optional[np.ndarray] = None
 
 
-def device_frame_step(xyz: torch.Tensor, mask: torch.Tensor,
-                      config: EngineConfig) -> FrameResult:
-    """Full device pipeline for one padded frame (stixel backend).
+def device_frame_step_batched(xyzs: torch.Tensor, masks: torch.Tensor,
+                              config: EngineConfig) -> FrameResult:
+    """Full device pipeline for B padded frames (stixel backend).
 
-    Segmentation leaves its results in (partition, z) order, clustering
-    consumes them directly and writes both label arrays back to original
-    order with one sort, and the hull stage sorts the compacted obstacle
-    buffer instead of the full padded cloud.
+    xyzs (B, N, 3) f32, masks (B, N) bool. Segmentation leaves its results
+    in (partition, z) order, clustering consumes them directly and writes
+    both label arrays back to original order with one sort, and the hull
+    stage sorts the compacted obstacle buffers instead of the full padded
+    clouds. Every leaf of the result has a leading B.
     """
     if config.pipeline.clustering_backend != "stixel":
         raise NotImplementedError(
             "the PyTorch port runs the 'stixel' clustering backend only; "
             "the 'cellgraph' backend (ops/clustering.py) is queued in "
             "ROADMAP.md")
-    ss = gpf_segment_sorted(xyz, mask, config.segmentation)
+    ss = gpf_segment_sorted(xyzs, masks, config.segmentation)
     obstacle_s = ss.valid & (ss.labels == SEG_OBSTACLE)
     fused = _stixel.cluster_fused(
         ss.xyz, obstacle_s, ss.valid, ss.orig, ss.labels,
@@ -100,8 +111,16 @@ def device_frame_step(xyz: torch.Tensor, mask: torch.Tensor,
     seg = SegmentationResult(fused.seg_labels, ss.planes, ss.plane_valid)
     runs = label_runs_presorted(
         fused.sorted_xyz, fused.sorted_label, fused.sorted_orig,
-        NUM_SLOTS, orig_bound=xyz.shape[0])
+        NUM_SLOTS, orig_bound=xyzs.shape[1])
     return _hull_stage(seg, fused.result, runs, config)
+
+
+def device_frame_step(xyz: torch.Tensor, mask: torch.Tensor,
+                      config: EngineConfig) -> FrameResult:
+    """device_frame_step_batched for one padded frame: xyz (N, 3), mask
+    (N,); the result has no frame axis."""
+    return frame_of(device_frame_step_batched(xyz[None], mask[None], config),
+                    0)
 
 
 def _hull_stage(seg: SegmentationResult, cl: ClusteringResult,
@@ -112,9 +131,11 @@ def _hull_stage(seg: SegmentationResult, cl: ClusteringResult,
     is_small = present & (runs.counts < small_cut)
     small_idx, n_small, ovf_s = compact_mask(is_small, SMALL_C)
     small_act = torch.arange(SMALL_C, dtype=_I32,
-                             device=small_idx.device) < n_small
-    s_starts = torch.where(small_act, runs.starts[small_idx.long()], 0)
-    s_counts = torch.where(small_act, runs.counts[small_idx.long()], 0)
+                             device=small_idx.device) < n_small[:, None]
+    s_starts = torch.where(small_act,
+                           runs.starts.gather(1, small_idx.long()), 0)
+    s_counts = torch.where(small_act,
+                           runs.counts.gather(1, small_idx.long()), 0)
     small_pts = gather_runs(runs.sorted_xyz, s_starts, s_counts, SMALL_P)
     small_hulls = convex_hulls_batched(
         small_pts[..., :2], s_counts, min(SMALL_P, small_cut + 1))
@@ -178,7 +199,8 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def host_outputs(fr: FrameResult, config: EngineConfig,
                  n: int, intensity: Optional[np.ndarray] = None,
                  with_outlines: bool = True) -> FrameOutputs:
-    """Exact (float32) readout + polygonization of a device FrameResult.
+    """Exact (float32) readout + polygonization of one frame's device
+    FrameResult (``frame_of(batched, b)`` for frame b of a batch).
 
     The streaming runtime uses the slimmer quantized single-buffer path
     (device_frame_step_packed + host_outputs_packed) instead.
@@ -290,38 +312,42 @@ def _pack16(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 
 
 def pack_host_payload(fr: FrameResult, config: EngineConfig) -> torch.Tensor:
-    """FrameResult -> the (words,) int32 payload (layout above)."""
+    """Batched FrameResult -> the (B, words) int32 payloads (layout above,
+    one row per frame); one frame's FrameResult -> its (words,)."""
+    if fr.clustering.labels.dim() == 1:
+        return pack_host_payload(map_leaves(lambda t: t[None], fr),
+                                 config)[0]
     N, NO, S, SC, LC, p_out, LP = _payload_dims(config)
     dev = fr.clustering.labels.device
+    frames = fr.clustering.labels.shape[0]
 
     # 13-bit label codes, two per word
     cl = fr.clustering.labels
     cl_enc = torch.where(cl == CLUSTER_UNDEFINED, 0, cl + 2)
     code = (cl_enc << 2) | fr.seg.labels
-    labels_packed = _pack16(code[0::2], code[1::2])
+    labels_packed = _pack16(code[:, 0::2], code[:, 1::2])
 
-    skey = fr.runs.sorted_key                      # (NO,) slot per row
+    skey = fr.runs.sorted_key                      # (B,NO) slot per row
     valid_row = skey < S
-    z = fr.runs.sorted_xyz[:, 2]
+    z = fr.runs.sorted_xyz[..., 2]
     inf = float("inf")
-    zmin = scatter_drop(S, skey, torch.where(valid_row, z, inf),
-                               inf, "amin")
-    zmax = scatter_drop(S, skey, torch.where(valid_row, z, -inf),
-                               -inf, "amax")
+    zmin = scatter_drop(S, skey, torch.where(valid_row, z, inf), inf, "amin")
+    zmax = scatter_drop(S, skey, torch.where(valid_row, z, -inf), -inf,
+                        "amax")
     zmin = torch.where(torch.isfinite(zmin), zmin, 0.0)
     zmax = torch.where(torch.isfinite(zmax), zmax, 0.0)
 
-    # quantization origin: min corner over valid rows
-    xy = fr.runs.sorted_xyz[:, :2]
+    # quantization origin: each frame's min corner over valid rows
+    xy = fr.runs.sorted_xyz[..., :2]
     big = 3e38
-    ox = torch.where(valid_row, xy[:, 0], big).amin()
-    oy = torch.where(valid_row, xy[:, 1], big).amin()
+    ox = torch.where(valid_row, xy[..., 0], big).amin(1)
+    oy = torch.where(valid_row, xy[..., 1], big).amin(1)
     ox = torch.where(ox.abs() < big, ox, 0.0)
     oy = torch.where(oy.abs() < big, oy, 0.0)
 
     # dynamic quantization scale from the frame's xy span
-    sx = torch.where(valid_row, xy[:, 0], -big).amax() - ox
-    sy = torch.where(valid_row, xy[:, 1], -big).amax() - oy
+    sx = torch.where(valid_row, xy[..., 0], -big).amax(1) - ox
+    sy = torch.where(valid_row, xy[..., 1], -big).amax(1) - oy
     span = torch.clamp(torch.maximum(sx, sy), min=1e-3)
     # a true f32 division, as XLA does: torch computes `65535.0 / span`
     # (and, on CUDA, `tensor / scalar`) as a reciprocal times, a ULP off
@@ -329,48 +355,63 @@ def pack_host_payload(fr: FrameResult, config: EngineConfig) -> torch.Tensor:
 
     # large-cluster point compaction: one sort brings large-run rows
     # (already in ascending cluster order) to the front
-    act_l = torch.arange(LC, dtype=_I32, device=dev) < fr.n_large
+    act_l = torch.arange(LC, dtype=_I32, device=dev) < fr.n_large[:, None]
     is_large_slot = set_drop(
-        torch.zeros(S + 1, dtype=torch.bool, device=dev),
+        torch.zeros((frames, S + 1), dtype=torch.bool, device=dev),
         torch.where(act_l, fr.large_ids, S + 1), True)
-    pt_large = is_large_slot[skey.long()]
-    xy_q = _pack16(_quant(xy[:, 0], ox, scale), _quant(xy[:, 1], oy, scale))
-    pos = torch.arange(xy.shape[0], dtype=_I32, device=dev)
+    pt_large = is_large_slot.gather(1, skey.long())
+    xy_q = _pack16(_quant(xy[..., 0], ox[:, None], scale[:, None]),
+                   _quant(xy[..., 1], oy[:, None], scale[:, None]))
+    pos = torch.arange(xy.shape[1], dtype=_I32, device=dev)
     sort_key = torch.where(pt_large, pos, 2 ** 30)
     _, xy_q_sorted = sort_by(sort_key, xy_q)
-    large_xy_q = xy_q_sorted[:LP]
-    n_large_pts = pt_large.sum(dtype=_I32)
+    large_xy_q = xy_q_sorted[:, :LP]
+    n_large_pts = pt_large.sum(1, dtype=_I32)
     pay_ovf = torch.clamp(n_large_pts - LP, min=0)
-    large_counts = torch.where(act_l, fr.runs.counts[fr.large_ids.long()], 0)
+    large_counts = torch.where(
+        act_l, fr.runs.counts.gather(1, fr.large_ids.long()), 0)
 
-    verts = fr.small_hulls.vertices
-    sh_q = _pack16(_quant(verts[..., 0], ox, scale),
-                   _quant(verts[..., 1], oy, scale))
+    verts = fr.small_hulls.vertices                # (B,SC,p_out,2)
+    sh_q = _pack16(_quant(verts[..., 0], ox[:, None, None],
+                          scale[:, None, None]),
+                   _quant(verts[..., 1], oy[:, None, None],
+                          scale[:, None, None]))
 
-    f32_bits = torch.stack([ox, oy, scale]).view(_I32)
+    f32_bits = torch.stack([ox, oy, scale], 1).view(_I32)
     header = torch.cat([
         torch.stack([
             fr.n_small, fr.n_large, fr.clustering.num_clusters,
             fr.clustering.overflow + fr.hull_overflow + pay_ovf,
-            torch.clamp(n_large_pts, max=LP)]).to(_I32),
-        f32_bits])
+            torch.clamp(n_large_pts, max=LP)], 1).to(_I32),
+        f32_bits], 1)
     return torch.cat([
         header, labels_packed, zmin.view(_I32), zmax.view(_I32),
-        fr.small_ids, fr.small_hulls.counts.to(_I32), sh_q.reshape(-1),
-        fr.large_ids, large_counts.to(_I32), large_xy_q])
+        fr.small_ids, fr.small_hulls.counts.to(_I32),
+        sh_q.reshape(frames, -1), fr.large_ids, large_counts.to(_I32),
+        large_xy_q], 1)
+
+
+def device_frame_step_packed_batched(xyzs: torch.Tensor, masks: torch.Tensor,
+                                     config: EngineConfig) -> torch.Tensor:
+    """device_frame_step_batched + one host payload per frame: (B, words)
+    int32 (the streaming path's buffer, a row per frame)."""
+    return pack_host_payload(device_frame_step_batched(xyzs, masks, config),
+                             config)
 
 
 def device_frame_step_packed(xyz: torch.Tensor, mask: torch.Tensor,
                              config: EngineConfig) -> torch.Tensor:
-    """device_frame_step + single-buffer host payload (the streaming path)."""
-    return pack_host_payload(device_frame_step(xyz, mask, config), config)
+    """device_frame_step_packed_batched for one padded frame: (words,)."""
+    return device_frame_step_packed_batched(xyz[None], mask[None],
+                                            config)[0]
 
 
 def host_outputs_packed(payload, config: EngineConfig, n: int,
                         intensity: Optional[np.ndarray] = None,
                         with_outlines: bool = True) -> FrameOutputs:
-    """host_outputs from a pack_host_payload buffer (a tensor on any
-    device, or a host array)."""
+    """host_outputs from one frame's payload, (words,): a row of
+    pack_host_payload's buffer (a tensor on any device, or a host
+    array)."""
     buf = (_np(payload) if isinstance(payload, torch.Tensor)
            else np.asarray(payload))
     N, NO, S, SC, LC, p_out, LP = _payload_dims(config)

@@ -6,4 +6,6 @@ lidar_processing_tpu_torch golden``). Each probe module (``probe_*``) has
 ``main(device=None, ...)``, runnable as
 ``python -m lidar_processing_tpu_torch.tools.<probe>``. They run on the
 card unless the caller names another device (the plain twins then run).
+``bench_batch`` is root tools/bench_batch.py's counterpart (ms/frame of
+the batched step at several B); ``step_bench`` compares trees' steps.
 """

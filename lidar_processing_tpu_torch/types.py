@@ -2,7 +2,8 @@
 
 Mirrors ``lidar_processing_tpu/types.py``: the same label conventions
 (bit-for-bit the reference's) and NamedTuples of tensors in place of JAX
-pytrees.
+pytrees. The shapes below are one frame's; a batched result (the JAX
+package's vmap, written out) has a leading frame axis B on every leaf.
 
   segmentation: UNKNOWN=0, GROUND=1, OBSTACLE=2
                 (ref: src/segmentation.hpp:41-46)
@@ -12,7 +13,7 @@ pytrees.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -64,3 +65,24 @@ class PolygonBatch(NamedTuple):
 
     vertices: torch.Tensor
     counts: torch.Tensor
+
+
+def map_leaves(fn, tree: Any) -> Any:
+    """fn applied to every tensor leaf, recursing through NamedTuples,
+    tuples and dicts (other leaves, such as None, as they are)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_leaves(fn, v) for v in tree))
+    if isinstance(tree, tuple):
+        return tuple(map_leaves(fn, v) for v in tree)
+    return tree
+
+
+def frame_of(tree: Any, b: int) -> Any:
+    """Frame b of a batched result: row b of every tensor leaf. A
+    per-frame entry point is its batched body at B = 1, then
+    ``frame_of(result, 0)``."""
+    return map_leaves(lambda t: t[b], tree)

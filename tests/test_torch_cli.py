@@ -18,7 +18,7 @@ from lidar_processing_tpu_torch.config import DEFAULT_CONFIG
 from lidar_processing_tpu_torch.io.export import read_ply_xyzrgb
 from lidar_processing_tpu_torch.io.pcd import write_pcd_xyzi
 from lidar_processing_tpu_torch.io.synthetic import street_scene
-from lidar_processing_tpu_torch.tools import golden_run
+from lidar_processing_tpu_torch.tools import bench_batch, golden_run
 
 _REPO = pathlib.Path(cli.__file__).resolve().parents[1]
 CAP = 4096
@@ -37,7 +37,7 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ms_per_frame",
 @pytest.fixture(autouse=True)
 def small_config(monkeypatch):
     """The entry points run the default config; here, a narrow one."""
-    for mod in (cli, bench, golden_run):
+    for mod in (cli, bench, golden_run, bench_batch):
         monkeypatch.setattr(mod, "DEFAULT_CONFIG", CFG)
 
 
@@ -105,12 +105,27 @@ def test_bench_prints_one_json_line(frames, tmp_path, capsys):
     assert rc == 0
     (res,) = _json_lines(capsys.readouterr().out)
     assert BENCH_KEYS | {"golden_154", "device"} == set(res)
-    assert res["backend"] == "cpu" and res["batch"] == 1
-    assert res["ms_per_frame"] == res["ms_per_frame_b1"] > 0
+    # batch: the best of B = 1 and the default batched B = 4, 8 (over the
+    # 2 frames repeated cyclically)
+    assert res["backend"] == "cpu" and res["batch"] in {1, 4, 8}
+    assert 0 < res["ms_per_frame"] <= res["ms_per_frame_b1"]
+    assert res["value"] == pytest.approx(1000.0 / res["ms_per_frame"])
     assert res["n_frames"] == 2 and res["outlines_per_frame"] > 3
     assert res["ground_iou_min"] == 1.0 and res["cluster_f1_min"] == 1.0
     assert res["golden_154"] == {"n_frames": 2, "iou_min": 1.0,
                                  "f1_min": 1.0}
+
+
+def test_bench_batch_prints_ms_per_frame(frames, capsys):
+    """tools/bench_batch.py's counterpart: one line per B, on the CPU here
+    (its default is the card)."""
+    out = bench_batch.main(["--device", "cpu", "--data-dir", str(frames),
+                            "--batches", "2", "3"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "backend=cpu frames=2"
+    assert [ln.split(":")[0] for ln in lines[1:]] == ["B=  2", "B=  3"]
+    assert all("ms/frame" in ln and "fps)" in ln for ln in lines[1:])
+    assert sorted(out) == [2, 3] and all(v > 0 for v in out.values())
 
 
 def test_golden_passes_on_a_small_frame(tmp_path, capsys):
@@ -141,6 +156,8 @@ def test_needs_a_gpu_unless_told_cpu(frames, monkeypatch):
     for cmd in ("run", "bench", "golden"):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main([cmd, "--data-dir", str(frames)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_batch.main(["--data-dir", str(frames)])
 
 
 def test_module_entry_point(frames):

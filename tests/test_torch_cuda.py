@@ -23,13 +23,14 @@ from lidar_processing_tpu_torch.kernels.min_d2 import (min_d2_planar,
                                                        min_d2_planar_ref)
 from lidar_processing_tpu_torch.ops import stixel as tsx
 from lidar_processing_tpu_torch.ops.segmentation import gpf_segment_sorted
+from lidar_processing_tpu_torch.runtime import pipeline as tpipe
 from lidar_processing_tpu_torch.runtime.pipeline import (
     device_frame_step_packed)
 from lidar_processing_tpu_torch.tools import probe_uf2
 from lidar_processing_tpu_torch.tools.kernel_cases import (tier_cases,
                                                            uf_graphs,
                                                            uf_oracle)
-from lidar_processing_tpu_torch.types import SEG_OBSTACLE
+from lidar_processing_tpu_torch.types import SEG_OBSTACLE, frame_of
 
 pytestmark = pytest.mark.cuda
 
@@ -231,3 +232,58 @@ def test_mosaic2_kernels_match_twins(cuda):
         <= 1e-5 * np.abs(terms).sum()
     x = torch.from_numpy(probe_mosaic2.accum_store_inputs(16384)).to(cuda)
     assert torch.equal(m2.tile_scale(x), m2.tile_scale_ref(x))
+
+
+def test_batched_kernels_match_single_launches(cuda):
+    """One launch for B frames equals B single launches and the batched
+    twin, bit for bit: tier_min_d2 on the shipped supernode table's four
+    crafted sets (a cloud of its own for each frame), union_find on the
+    eight contract graphs."""
+    tiers = tsx._TIERS_SNP
+    n = DEFAULT_CONFIG.pipeline.max_obstacle_points
+    cases = [(xyz + np.float32(b), *rest) for b, (_, xyz, *rest)
+             in enumerate(tier_cases(tiers, n=n, seed=7))]
+    batch = [torch.from_numpy(np.stack(a)).to(cuda) for a in zip(*cases)]
+    before = ttm.tier_min_d2.launches
+    got = ttm.tier_min_d2(*batch, tiers)
+    assert ttm.tier_min_d2.launches == before + 1
+    want = ttm.tier_min_d2_ref(*batch, tiers)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for b in range(len(cases)):
+        one = ttm.tier_min_d2(*(a[b] for a in batch), tiers)
+        assert torch.equal(got[b].view(torch.int32), one.view(torch.int32))
+
+    graphs = [g for _, _, g in _graphs(cuda)]
+    eu, ev, ne = (torch.stack(a) for a in zip(*graphs))
+    before = tuf.cc_labels.launches
+    got = tuf.cc_labels(eu, ev, ne, 10240)
+    assert tuf.cc_labels.launches == before + 1
+    assert torch.equal(got, tuf.cc_labels_ref(eu, ev, ne, 10240))
+    for b, g in enumerate(graphs):
+        assert torch.equal(got[b], tuf.cc_labels(*g, 10240)), b
+
+
+def test_batched_step_on_card_matches_per_frame(cuda):
+    """The batched step on the card: each frame (one empty, one alone
+    over the supernode cap, unequal point counts) equals its own step on
+    the card, leaf for leaf and payload word for word, with one
+    union_find and two tier_min_d2 launches for the whole batch."""
+    cfg = CFG.replace(pipeline=dataclasses.replace(CFG.pipeline,
+                                                   max_supernodes=240))
+    clouds = [street_scene(0, "small")[0][:2400], np.zeros((0, 3)),
+              street_scene(2, "small")[0], street_scene(1, "small")[0]]
+    x, m = (torch.from_numpy(np.stack(a)).to(cuda)
+            for a in zip(*(pad_frame(c, CAP) for c in clouds)))
+    before = (ttm.tier_min_d2.launches, tuf.cc_labels.launches)
+    got = tpipe.device_frame_step_batched(x, m, cfg)
+    assert (ttm.tier_min_d2.launches, tuf.cc_labels.launches) == (
+        before[0] + 2, before[1] + 1)
+    pay = tpipe.pack_host_payload(got, cfg)
+    for b in range(len(clouds)):
+        want = tpipe.device_frame_step(x[b], m[b], cfg)
+        for g, w in zip(torch.utils._pytree.tree_leaves(frame_of(got, b)),
+                        torch.utils._pytree.tree_leaves(want)):
+            assert g.dtype == w.dtype and torch.equal(g, w), b
+        assert torch.equal(pay[b], device_frame_step_packed(x[b], m[b], cfg))
+    assert got.clustering.overflow.tolist()[:2] == [0, 0]
+    assert int(got.clustering.overflow[2]) > 0

@@ -109,3 +109,30 @@ def test_simplify_ring_copy_matches_original(n, cap):
                      np.sin(ang) * (2 + np.sin(5 * ang))], 1)
     np.testing.assert_array_equal(tsimplify.simplify_ring(ring, cap),
                                   jsimplify.simplify_ring(ring, cap))
+
+
+def test_hull_ops_batched_equal_frames_alone():
+    """A frame axis in front: label runs, run gathers and convex hulls of
+    each frame of a batch equal the frame's own, bit for bit (different
+    cluster counts per frame, one frame with a single cluster)."""
+    bufs = [_labeled_buffer(seed, n_clusters=k)
+            for seed, k in ((4, 300), (5, 1), (6, 900))]
+    xyz, labels, orig = (torch.from_numpy(np.stack(a)) for a in zip(*bufs))
+    runs = thull.label_runs_presorted(xyz, labels, orig, NUM_SLOTS,
+                                      orig_bound=8192)
+    pts = thull.gather_runs(runs.sorted_xyz, runs.starts[:, :400],
+                            runs.counts[:, :400], 32)
+    counts = torch.clamp(runs.counts[:, :400], max=32)
+    hulls = thull.convex_hulls_batched(pts[..., :2], counts, 21)
+    for b in range(3):
+        one = thull.label_runs_presorted(xyz[b], labels[b], orig[b],
+                                         NUM_SLOTS, orig_bound=8192)
+        for g, w in zip(runs, one):
+            assert g[b].dtype == w.dtype and torch.equal(g[b], w)
+        p1 = thull.gather_runs(one.sorted_xyz, one.starts[:400],
+                               one.counts[:400], 32)
+        assert torch.equal(pts[b], p1)
+        h1 = thull.convex_hulls_batched(p1[..., :2], counts[b], 21)
+        assert torch.equal(hulls.vertices[b], h1.vertices)
+        assert torch.equal(hulls.counts[b], h1.counts)
+    assert (hulls.counts > 2).sum() > 100

@@ -101,3 +101,68 @@ def test_indexing_helpers_follow_jax_semantics():
         jnp.asarray(vals_u), mode="drop")
     _eq(tsu.set_drop(torch.zeros(10, dtype=torch.int32),
                      torch.from_numpy(tgt_u), torch.from_numpy(vals_u)), want)
+
+
+def _batched_cases(rng, b=3, n=200):
+    """(name, fn, array args): each array arg (B, ...) row-major, one row
+    per frame, with per-row starts, counts and sizes that differ."""
+    ids = np.stack([_runs(rng, n, 20 + 15 * i) for i in range(b)])
+    new_run = np.concatenate([np.ones((b, 1), bool),
+                              ids[:, 1:] != ids[:, :-1]], 1)
+    mask = rng.uniform(size=(b, n)) < np.array([[0.1], [0.6], [0.0]])
+    vals = rng.integers(-1000, 1000, (b, n)).astype(np.int32)
+    k1 = rng.integers(0, 5, (b, n)).astype(np.int32)
+    k2 = rng.choice(np.array([-0.0, 0.0, 1.5, -2.25], np.float32), (b, n))
+    idx = rng.integers(-5, n + 5, (b, 50)).astype(np.int32)
+    starts = np.array([0, 150, 197], np.int32)     # the last one clamps
+    # scatter targets: in range, out of range, and exactly the dump slot
+    # (size) once in every row
+    size = 40
+    tgt = rng.integers(0, size + 8, (b, n)).astype(np.int32)
+    tgt[:, 7] = size
+    rows = rng.uniform(-9, 9, (b, 30, 4)).astype(np.float32)
+    pack = rng.uniform(-9, 9, (b, n, 3)).astype(np.float32)
+    buf = rng.integers(0, 9, (b, size)).astype(np.int32)
+    uniq = np.stack([rng.permutation(size + 10)[:30] for _ in range(b)]
+                    ).astype(np.int32)
+    uniq[:, 0] = size                                 # dropped
+    return [
+        ("sort_by", lambda a, c, v: tsu.sort_by((a, c), v), (k1, k2, vals)),
+        ("run_starts", lambda r: tsu.run_starts(r, 60), (new_run,)),
+        ("compact_mask", lambda mk: tsu.compact_mask(mk, 64), (mask,)),
+        ("seg_broadcast_first", tsu.seg_broadcast_first, (vals, ids)),
+        ("take", tsu.take, (vals, idx)),
+        ("take_rows", tsu.take_rows, (rows, idx)),
+        ("dynamic_slice", lambda x, s: tsu.dynamic_slice(x, s, 16),
+         (vals, starts)),
+        ("scatter_min_rows",
+         lambda i, p: tsu.scatter_min_rows(size, i, p, 1e9), (tgt, pack)),
+        ("scatter_drop_sum",
+         lambda i, v: tsu.scatter_drop(size, i, v, 0, "sum"), (tgt, vals)),
+        ("scatter_drop_amin",
+         lambda i, v: tsu.scatter_drop(size, i, v, 10 ** 6, "amin"),
+         (tgt, vals)),
+        ("set_drop", lambda bf, i, v: tsu.set_drop(bf, i, v),
+         (buf, uniq, vals[:, :30])),
+        ("set_drop_scalar", lambda bf, i: tsu.set_drop(bf, i, -3),
+         (buf, uniq)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(12))
+def test_batched_primitives_equal_rows_alone(case):
+    """Each primitive on a (B, ...) batch gives, row for row, what it
+    gives on that row alone (per-row starts and counts; a scatter's
+    dropped index of row b lands in no other row)."""
+    name, fn, args = _batched_cases(np.random.default_rng(case))[case]
+    got = fn(*map(torch.from_numpy, args))
+    got = got if isinstance(got, tuple) else (got,)
+    for b in range(3):
+        want = fn(*(torch.from_numpy(np.ascontiguousarray(a[b]))
+                    for a in args))
+        want = want if isinstance(want, tuple) else (want,)
+        assert len(got) == len(want), name
+        for g, w in zip(got, want):
+            assert g[b].dtype == w.dtype and g[b].shape == w.shape, name
+            np.testing.assert_array_equal(g[b].numpy(), w.numpy(),
+                                          err_msg=f"{name} row {b}")

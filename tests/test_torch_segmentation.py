@@ -105,3 +105,34 @@ def test_empty_cloud_all_unknown():
     res = tseg.gpf_segment(torch.from_numpy(x), torch.from_numpy(m), TSCFG)
     assert np.all(res.labels.numpy() == 0)
     assert not res.plane_valid.any()
+
+
+def test_eig3_batched_leading_axes():
+    """(frames, partitions, 3, 3) as the batched GPF fit calls it: every
+    matrix's result equals the flat batch's, bit for bit, and JAX's."""
+    a = _covariances(np.random.default_rng(0), 64)
+    for name in ("smallest_eigenvalue_3x3", "smallest_eigenvector_3x3"):
+        flat = getattr(teig, name)(torch.from_numpy(a))
+        got = getattr(teig, name)(torch.from_numpy(a).reshape(4, 16, 3, 3))
+        assert got.shape == (4, 16) + flat.shape[1:]
+        assert torch.equal(got.reshape(flat.shape), flat)
+        np.testing.assert_allclose(
+            got.reshape(flat.shape).numpy(),
+            np.asarray(getattr(jeig, name)(jnp.asarray(a))), atol=1e-5)
+
+
+def test_gpf_segment_batched_equals_frames_alone():
+    """Three frames of different point counts (one with the odd-count
+    tail-drop quirk, one empty) in one batch: every field of each frame
+    bit for bit what the frame gives alone, in sorted and original
+    order."""
+    clouds = [street_scene(0, "small")[0], _ground_box_scene(3),
+              street_scene(2, "small")[0][:2501], np.zeros((0, 3))]
+    x, m = (np.stack(a) for a in zip(*(pad_frame(c, CAP) for c in clouds)))
+    for fn in (tseg.gpf_segment_sorted, tseg.gpf_segment):
+        got = fn(torch.from_numpy(x), torch.from_numpy(m), TSCFG)
+        for b in range(len(clouds)):
+            want = fn(torch.from_numpy(x[b]), torch.from_numpy(m[b]), TSCFG)
+            for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                            torch.utils._pytree.tree_leaves(want)):
+                assert g[b].dtype == w.dtype and torch.equal(g[b], w)

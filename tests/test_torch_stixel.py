@@ -22,6 +22,7 @@ from lidar_processing_tpu.types import SEG_OBSTACLE
 from lidar_processing_tpu_torch.interop import config_from_jax, to_torch
 from lidar_processing_tpu_torch.io.synthetic import pad_frame, street_scene
 from lidar_processing_tpu_torch.ops import stixel as tsx
+from lidar_processing_tpu_torch.types import frame_of
 
 CAP = 4096
 
@@ -84,8 +85,9 @@ def test_sort_points_full_matches(name):
     _, args = _sorted_inputs(name, cfg)
     h = math.sqrt(cfg.clustering.distance_squared / 3.0)
     want = jsx._sort_points_full(*map(jnp.asarray, args), cfg.pipeline, h)
-    got = tsx._sort_points_full(*to_torch(args),
-                                config_from_jax(cfg).pipeline, h)
+    sp, *rest = tsx._sort_points_full(*(t[None] for t in to_torch(args)),
+                                      config_from_jax(cfg).pipeline, h)
+    got = frame_of((tsx._frame_scalars(sp), *rest), 0)
     _assert_tree_equal(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
@@ -121,6 +123,28 @@ def test_cluster_fused_matches_jax(name):
     tcfg = config_from_jax(CFG)
     got = tsx.cluster_fused(*to_torch(args), tcfg.clustering, tcfg.pipeline)
     _assert_tree_equal(got, want)
+
+
+@pytest.mark.parametrize("cfg_name", ["caps", "tiny"])
+def test_cluster_batched_equals_frames_alone(cfg_name):
+    """Two frames in one call (the frame axis written out through every
+    stage and both kernels' twins): labels, counts and overflow counters
+    of each equal the frame's own call, bit for bit; under the tiny caps
+    each frame overflows by its own amount."""
+    cfg = config_from_jax(CFG if cfg_name == "caps" else TINY)
+    frames = []
+    for name in ("street0", "boxes"):
+        (x, m), args = _sorted_inputs(name, CFG)
+        frames.append((x, args[1][np.argsort(args[3])]))  # original order
+    x, obst = (torch.from_numpy(np.stack(a)) for a in zip(*frames))
+    got = tsx.cluster(x, obst, cfg.clustering, cfg.pipeline)
+    assert got.num_clusters.shape == got.overflow.shape == (2,)
+    for b in range(2):
+        want = tsx.cluster(x[b], obst[b], cfg.clustering, cfg.pipeline)
+        for g, w in zip(got, want):
+            assert g[b].dtype == w.dtype and torch.equal(g[b], w)
+    if cfg_name == "tiny":
+        assert (got.overflow > 0).all() and len(set(got.overflow.tolist())) > 1
 
 
 def test_tier_tables_are_the_jax_packages():
@@ -225,10 +249,12 @@ def test_tiered_exact_matches_jax(table):
     want, w_ovf, w_tiers, w_dbg = jsx._tiered_exact(
         jnp.asarray(xyz), jsx._PairTest(*map(jnp.asarray, rec)), r2,
         n_pairs, tiers=tiers, chunk_pairs=chunk_pairs)
-    args = (torch.from_numpy(xyz), tsx._PairTest(*map(torch.from_numpy, rec)),
+    # the port's tier pass runs on a frame batch: here, one frame
+    args = (torch.from_numpy(xyz)[None],
+            tsx._PairTest(*(torch.from_numpy(a)[None] for a in rec)),
             r2, n_pairs)
-    got, ovf, dbg = tsx._tiered_exact(*args, tiers=tiers,
-                                      chunk_pairs=chunk_pairs, debug=True)
+    got, ovf, dbg = frame_of(tsx._tiered_exact(
+        *args, tiers=tiers, chunk_pairs=chunk_pairs, debug=True), 0)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(dbg["tiers"].numpy(), np.asarray(w_tiers))
     assert int(ovf) == int(w_ovf) and ovf.dtype == torch.int32
@@ -236,7 +262,8 @@ def test_tiered_exact_matches_jax(table):
     lanes = 3 * sum(s * (u + 8 + v + 32) for u, v, s in tiers)
     assert abs(float(dbg["windows"]) - float(w_dbg["windows"])) \
         <= 2e-5 * lanes * tsx._F_BIG
-    plain = tsx._tiered_exact(*args, tiers=tiers, chunk_pairs=chunk_pairs)
+    plain = frame_of(tsx._tiered_exact(*args, tiers=tiers,
+                                       chunk_pairs=chunk_pairs), 0)
     assert torch.equal(plain[0], got) and torch.equal(plain[1], ovf)
     assert plain[2] is None
     # the crafted records reach what the case is for
