@@ -31,7 +31,7 @@ Phases (any failure raises, so the script never exits 0 after one):
      (counts set to 0 before each B and read after); ms per frame at each
      B (CUDA events around the batched calls, best of 3 passes) and the
      peak device memory of one step at each B; the B = 8 step's kernel
-     calls are recorded for phase 11;
+     calls are recorded for phase 12;
   8. host stage and entry points: frame 0's large-cluster outlines native
      vs the scipy chain (chamfer < 0.05 each), a broken native build
      raising instead of reaching scipy, host p50 and end to end of the 8
@@ -40,23 +40,41 @@ Phases (any failure raises, so the script never exits 0 after one):
      ``run --realtime`` reports them), and the CLI's run (with an
      export), golden (2 frames, must pass) and
      bench (B = 1, 4 and 8; its JSON line printed);
-  9. torch.profiler's count of CUDA kernels in one device step at B = 1
-     (at most 4905) and in one batched step at B = 8;
-  10. synthetic frame 0 at DEFAULT_CONFIG through cluster_debug, recording
+  9. the cellgraph backend and the single-device ops, at DEFAULT_CONFIG
+     full width with clustering_backend "cellgraph" and cell_capacity 128:
+     the 8 frames through ReplayStream (overflow 0, cluster labels and
+     counts equal to the stixel stream's bit for bit, no stixel kernel
+     launched; each frame's overflow at the shipped cell_capacity 64
+     printed); the small scene against the radius-CC reference; frame
+     0's cluster and label_runs CUDA == CPU; a B = 8 step == eight B = 1
+     steps; 0 host syncs in a cellgraph step; its kernels and device time
+     (and that time by op), device p50 at B = 1, ms per frame at B = 8 and
+     peak memory; run_frame
+     == device_frame_step + host_outputs; NeighborIndex over frame 0
+     (k_nearest k = 16, radius_search at distance_squared, capacity 256,
+     4096 queries) CUDA == CPU, timed; seg_scan_min / seg_scan_max CUDA ==
+     CPU; tools/measure_caps (8 frames), tier_hist (2) and profile_stages
+     (8, with sub-stages) run to their end;
+  10. torch.profiler's count of CUDA kernels in one device step at B = 1
+     (at most 2995) and in one batched step at B = 8;
+  11. synthetic frame 0 at DEFAULT_CONFIG through cluster_debug, recording
      the two tier_min_d2 calls of its step and its edge list;
-  11. kernels vs their plain PyTorch twins on the card, at the shapes the
+  12. kernels vs their plain PyTorch twins on the card, at the shapes the
      main path gives them: tier_min_d2 on frame 0's two calls and on
      crafted descriptor sets at both shipped tier tables (bit for bit,
      and equal to the old design, _stacked_windows + min_d2 per tier);
      union_find on random and adversarial graphs and frame 0's edges
-     (equal; beside it uf_serial, the serial design it replaced); min_d2
+     (equal; beside it uf_serial, the serial design it replaced), and
+     cc_labels_hybrid on frame 0's edges and the 20k graph (one union_find
+     launch a call, equal to the twin and to union_find alone; those
+     launches join union_find's count in the JSON line); min_d2
      at all 12 stixel tier shapes (<= 4 ULP); with CUDA-event times,
      torch.profiler's device time, the PyTorch call that computes the
      same function (where there is one) and the least time the card could
      take (bound); then both main-path kernels' batched launches on
      frames 0-7's own calls (phase 7) against 8 single launches and the
      batched twins, bit for bit, timed;
-  12. probes: the kernels of the TPU probes in tools/ against their twins
+  13. probes: the kernels of the TPU probes in tools/ against their twins
      at the JAX probes' own sizes (union-find variants equal, pair minima
      <= 4 ULP, mosaic2 A and C equal, B within 1e-5 of the sum of |terms|),
      timed the same way; frame 0's edge list through every union-find
@@ -65,7 +83,7 @@ Phases (any failure raises, so the script never exits 0 after one):
      min_d2_planar (bit for bit), both timed; then the probe entry points
      (tools/probe_*.main) with the launch counts reset: every probe kernel
      must have run;
-  13. no jax imported.
+  14. no jax imported.
 
 Prints each phase's seconds, the kernels' JSON record, the card's name and
 power limit, and, as its last line, {"ok": true, "device": {...}}.
@@ -97,7 +115,9 @@ H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
 CDIST = "donot_use_mm_for_euclid_dist"
 BATCHES = (4, 8)           # frames per batched step, beside B = 1
-KERNELS_B1_MAX = 4905      # CUDA kernels a B = 1 step: PR 3's 4671 + 5%
+KERNELS_B1_MAX = 2995      # CUDA kernels a B = 1 step: 2852 measured + 5%
+CELL_CAPACITY = 128        # the cellgraph phase's cell_capacity (shipped: 64)
+NB_QUERIES = 4096          # NeighborIndex queries on frame 0
 
 
 def log(msg: str) -> None:
@@ -358,10 +378,42 @@ def check_union_find(device, frame_edges):
                         for k, (ms, d) in t.items())
             + f", bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
     t, b = rows["20k"]
-    return {"name": "union_find", "source": f"{CSRC}/union_find.cu",
-            "replaces": "lidar_processing_tpu/kernels/union_find.py:31",
-            "max_abs_err": max_abs, "ms": t["kernel"][0],
-            "plain_ms": t["plain"][0], **b, "library_ms": None}
+    return ({"name": "union_find", "source": f"{CSRC}/union_find.cu",
+             "replaces": "lidar_processing_tpu/kernels/union_find.py:31",
+             "max_abs_err": max_abs, "ms": t["kernel"][0],
+             "plain_ms": t["plain"][0], **b, "library_ms": None},
+            check_hybrid({"frame 0": frame_edges, "20k": g20k}))
+
+
+def check_hybrid(graphs) -> int:
+    """cc_labels_hybrid (two hook rounds, the live label pairs deduped,
+    then the union_find kernel on them) on each graph, counts set to 0
+    first: one union_find launch a call, labels equal to cc_labels_ref
+    and to cc_labels alone, bit for bit; then its time beside
+    cc_labels'. Returns the launches of the counted calls."""
+    from lidar_processing_tpu_torch.kernels.union_find import (
+        cc_labels, cc_labels_hybrid, cc_labels_ref)
+    cc_labels.launches = 0
+    got = {name: cc_labels_hybrid(*g, 10240) for name, g in graphs.items()}
+    launches = cc_labels.launches
+    if launches != len(graphs):
+        raise AssertionError(f"cc_labels_hybrid: {launches} union_find "
+                             f"launches for {len(graphs)} calls")
+    for name, g in graphs.items():
+        for twin, fn in (("cc_labels_ref", cc_labels_ref),
+                         ("cc_labels", cc_labels)):
+            if not same_bits(got[name], fn(*g, 10240)):
+                raise AssertionError(f"cc_labels_hybrid on {name} differs "
+                                     f"from {twin}")
+        t = {k: (cuda_ms(lambda: fn(*g, 10240)),
+                 device_ms(lambda: fn(*g, 10240)))
+             for k, fn in (("hybrid", cc_labels_hybrid),
+                           ("union_find alone", cc_labels))}
+        log(f"cc_labels_hybrid on {name} ({int(g[2])} edges): == "
+            f"cc_labels_ref == cc_labels bit for bit, one union_find launch; "
+            + ", ".join(f"{k} {ms:.4f} ms (device {fmt_ms(d)})"
+                        for k, (ms, d) in t.items()))
+    return launches
 
 
 def tier_work(args, tiers):
@@ -844,11 +896,12 @@ def check_cuda_vs_cpu(stream) -> int:
     return diff
 
 
-def check_against_radius_cc(device) -> int:
-    """A small scene through the device step on the card: its cluster
-    labels must equal an independent reference — exact connected
-    components of the d <= sqrt(distance_squared) graph over the obstacle
-    points (scipy), size-filtered and numbered by min point index."""
+def check_against_radius_cc(device, backend: str = "stixel") -> int:
+    """A small scene through the device step on the card, on `backend`:
+    its cluster labels must equal an independent reference — exact
+    connected components of the d <= sqrt(distance_squared) graph over
+    the obstacle points (scipy), size-filtered and numbered by min point
+    index — with overflow 0."""
     import dataclasses
     import torch
     from scipy.sparse import coo_matrix
@@ -863,11 +916,15 @@ def check_against_radius_cc(device) -> int:
     cfg = DEFAULT_CONFIG.replace(pipeline=dataclasses.replace(
         DEFAULT_CONFIG.pipeline, max_points=4096, max_obstacle_points=4096,
         max_cells=2048, max_columns=1024, max_supernodes=2048,
-        max_column_pairs=8192, max_sn_pairs=8192))
+        max_column_pairs=8192, max_sn_pairs=8192, max_ambiguous_pairs=8192,
+        clustering_backend=backend))
     xyz, _ = street_scene(0, "small")
     x, m = pad_frame(xyz, 4096)
     fr = device_frame_step(torch.from_numpy(x).to(device),
                            torch.from_numpy(m).to(device), cfg)
+    if int(fr.clustering.overflow) != 0:
+        raise AssertionError(f"small scene ({backend}): overflow "
+                             f"{int(fr.clustering.overflow)}")
     n = xyz.shape[0]
     seg = fr.seg.labels.cpu().numpy()[:n]
     got = fr.clustering.labels.cpu().numpy()[:n]
@@ -886,10 +943,11 @@ def check_against_radius_cc(device) -> int:
     rank[keep] = np.argsort(np.argsort(first[keep]))
     want[obst] = rank[comp]
     if not np.array_equal(got, want):
-        raise AssertionError(f"radius-CC reference: {np.sum(got != want)} "
-                             f"labels differ")
-    log(f"small scene on the card: cluster labels == exact radius-CC "
-        f"reference ({int(keep.sum())} clusters, {len(obst)} obstacles)")
+        raise AssertionError(f"radius-CC reference ({backend}): "
+                             f"{np.sum(got != want)} labels differ")
+    log(f"small scene on the card ({backend}): cluster labels == exact "
+        f"radius-CC reference ({int(keep.sum())} clusters, {len(obst)} "
+        f"obstacles)")
     return int(keep.sum())
 
 
@@ -911,7 +969,8 @@ def count_host_syncs(stream) -> int:
             torch.cuda.set_sync_debug_mode("default")
     syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
              if "called a synchronizing" in str(w.message)]
-    log(f"host syncs in one device step: {len(syncs)}"
+    log(f"host syncs in one device step "
+        f"({stream.config.pipeline.clustering_backend}): {len(syncs)}"
         + "".join(f"\n  at {m}" for m in sorted(set(syncs))))
     if syncs:
         raise AssertionError("the device step waits on the card")
@@ -1255,6 +1314,294 @@ def log_step_kernels(stream) -> dict:
     return {1: out, N_FRAMES: out8}
 
 
+def cellgraph_config(capacity: int = CELL_CAPACITY):
+    """DEFAULT_CONFIG at full width on the cellgraph backend."""
+    import dataclasses
+    from lidar_processing_tpu_torch.config import DEFAULT_CONFIG
+    return DEFAULT_CONFIG.replace(pipeline=dataclasses.replace(
+        DEFAULT_CONFIG.pipeline, clustering_backend="cellgraph",
+        cell_capacity=capacity))
+
+
+def run_cellgraph_path(tmp: Path, device, stixel_results):
+    """The 8 frames through ReplayStream on the cellgraph backend
+    (cell_capacity CELL_CAPACITY, nothing else cut): every frame overflow
+    0, cluster labels and num_clusters equal to the stixel stream's bit
+    for bit, one outline per cluster, and none of the stixel kernels
+    launched; then each frame's overflow at the shipped cell_capacity."""
+    from lidar_processing_tpu_torch.kernels.min_d2 import min_d2_planar
+    from lidar_processing_tpu_torch.kernels.tier_min_d2 import tier_min_d2
+    from lidar_processing_tpu_torch.kernels.union_find import cc_labels
+    from lidar_processing_tpu_torch.runtime.pipeline import device_frame_step
+    from lidar_processing_tpu_torch.runtime.stream import ReplayStream
+
+    stream = ReplayStream(cellgraph_config(), data_dir=str(tmp),
+                          device=device)
+    stream.warmup()
+    kernels = {"tier_min_d2": tier_min_d2, "union_find": cc_labels,
+               "min_d2": min_d2_planar}
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = list(stream.run(N_FRAMES))
+    run_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    stixel = {m.frame_id: out for out, m in stixel_results}
+    for out, m in results:
+        want = stixel[m.frame_id]
+        if m.overflow != 0:
+            raise AssertionError(f"cellgraph frame {m.frame_id}: overflow "
+                                 f"{m.overflow}")
+        if (out.num_clusters != want.num_clusters
+                or not np.array_equal(out.cluster_labels,
+                                      want.cluster_labels)):
+            raise AssertionError(
+                f"cellgraph frame {m.frame_id}: {out.num_clusters} clusters,"
+                f" {np.sum(out.cluster_labels != want.cluster_labels)} "
+                f"labels differ from the stixel stream's")
+        if m.num_outlines != m.num_clusters:
+            raise AssertionError(f"cellgraph frame {m.frame_id}: "
+                                 f"{m.num_outlines} outlines")
+    if any(launches.values()):
+        raise AssertionError(f"the cellgraph path launched {launches}")
+    ovf64 = [int(device_frame_step(stream.xyz[f], stream.mask[f],
+                                   cellgraph_config(64)).clustering.overflow)
+             for f in range(N_FRAMES)]
+    log(f"cellgraph main path (cell_capacity {CELL_CAPACITY}): {N_FRAMES} "
+        f"frames + 1 warmup through ReplayStream in {run_s:.1f} s, overflow "
+        f"0 and cluster labels == the stixel stream's bit for bit on every "
+        f"frame ({[out.num_clusters for out, _ in results]} clusters); "
+        f"stixel kernels launched {launches}; overflow at the shipped "
+        f"cell_capacity 64, frames 0-{N_FRAMES - 1}: {ovf64}")
+    return stream
+
+
+def check_cellgraph_cuda_vs_cpu(stream) -> None:
+    """Frame 0: ops/clustering.py::cluster and label_runs on the card and
+    on the CPU, from the same obstacle mask, bit for bit."""
+    import torch
+    from lidar_processing_tpu_torch.ops.clustering import cluster
+    from lidar_processing_tpu_torch.ops.hull import label_runs
+    from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
+    from lidar_processing_tpu_torch.runtime.pipeline import NUM_SLOTS
+    from lidar_processing_tpu_torch.types import SEG_OBSTACLE
+    cfg = stream.config
+    x, m = stream.xyz[0], stream.mask[0]
+    obst = m & (gpf_segment(x, m, cfg.segmentation).labels == SEG_OBSTACLE)
+    t0 = time.perf_counter()
+    on_cpu = cluster(x.cpu(), obst.cpu(), cfg.clustering, cfg.pipeline)
+    cpu_s = time.perf_counter() - t0
+    on_gpu = cluster(x, obst, cfg.clustering, cfg.pipeline)
+    for name, a, b in zip(on_gpu._fields, on_gpu, on_cpu):
+        if not same_bits(a.cpu(), b):
+            raise AssertionError(f"cellgraph cluster.{name}: CUDA and CPU "
+                                 f"differ")
+    runs_gpu = label_runs(x, on_gpu.labels, NUM_SLOTS)
+    runs_cpu = label_runs(x.cpu(), on_cpu.labels, NUM_SLOTS)
+    if not all(same_bits(a.cpu(), b) for a, b in zip(runs_gpu, runs_cpu)):
+        raise AssertionError("label_runs: CUDA and CPU differ")
+    log(f"cellgraph frame 0: cluster and label_runs on the card == on the "
+        f"CPU bit for bit ({int(on_gpu.num_clusters)} clusters; the CPU "
+        f"cluster took {cpu_s:.1f} s)")
+
+
+def check_cellgraph_batched(stream):
+    """One B = 8 cellgraph step over frames 0-7: every frame's FrameResult
+    leaves and payload words equal its B = 1 step's, bit for bit."""
+    import torch
+    from lidar_processing_tpu_torch.runtime.pipeline import (
+        device_frame_step_batched, pack_host_payload)
+    from lidar_processing_tpu_torch.types import frame_of
+    cfg = stream.config
+    x, m = stream.xyz[:N_FRAMES], stream.mask[:N_FRAMES]
+    fr8 = device_frame_step_batched(x, m, cfg)
+    pay8 = pack_host_payload(fr8, cfg)
+    for f in range(N_FRAMES):
+        fr1 = device_frame_step_batched(x[f:f + 1], m[f:f + 1], cfg)
+        leaves = zip(torch.utils._pytree.tree_leaves(frame_of(fr8, f)),
+                     torch.utils._pytree.tree_leaves(fr1))
+        if not all(same_bits(g, w[0]) for g, w in leaves):
+            raise AssertionError(f"cellgraph B={N_FRAMES}: frame {f}'s "
+                                 f"FrameResult differs from B=1")
+        if not same_bits(pay8[f], pack_host_payload(fr1, cfg)[0]):
+            raise AssertionError(f"cellgraph B={N_FRAMES}: frame {f}'s "
+                                 f"payload differs from B=1")
+    log(f"cellgraph B={N_FRAMES} step: every frame's FrameResult leaves "
+        f"and payload words == its B=1 step's bit for bit")
+
+
+def measure_cellgraph(stream, smi) -> dict:
+    """Kernels and device time of one cellgraph step (torch.profiler),
+    device p50 at B = 1 (CUDA events around device_frame_step_packed, 3
+    repeats a frame), ms per frame at B = 8 (CUDA events around the
+    batched step, best of 3), and the peak memory of one step at B = 1
+    and 8."""
+    import torch
+    from lidar_processing_tpu_torch.runtime.pipeline import (
+        device_frame_step_batched, device_frame_step_packed)
+    from lidar_processing_tpu_torch.tools.step_bench import step_kernels
+    cfg, dev = stream.config, stream.device
+    x, m = stream.xyz[:N_FRAMES], stream.mask[:N_FRAMES]
+    out = step_kernels(lambda: device_frame_step_packed(x[0], m[0], cfg))
+    p50 = statistics.median(
+        cuda_ms(lambda: device_frame_step_packed(x[f], m[f], cfg), reps=3)
+        for f in range(N_FRAMES))
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        device_frame_step_batched(x, m, cfg)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / N_FRAMES)
+    peak = {}
+    for b in (1, N_FRAMES):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        device_frame_step_batched(x[:b], m[:b], cfg)
+        torch.cuda.synchronize()
+        peak[b] = torch.cuda.max_memory_allocated(dev) - before
+    log(f"cellgraph step ({smi}): B=1 (frame 0) {out['kernels']} CUDA "
+        f"kernels, {out['copies']} copies and fills, {out['busy_ms']:.3f} "
+        f"ms of device time (torch.profiler); device p50 B=1 {p50:.3f} ms; "
+        f"ms_per_frame B={N_FRAMES} {best:.3f} ms (best of 3); peak device "
+        f"memory of one step, its own: B=1 {peak[1] / 2**20:.0f} MiB, "
+        f"B={N_FRAMES} {peak[N_FRAMES] / 2**20:.0f} MiB")
+    log("cellgraph step B=1, device time by op (torch.profiler, the "
+        "kernels each op launched): " + top_ops(
+            lambda: device_frame_step_packed(x[0], m[0], cfg)))
+    return {**out, "p50_ms": p50, "ms_per_frame_b8": best, "peak": peak}
+
+
+def top_ops(step, n: int = 8) -> str:
+    """The n PyTorch ops whose kernels take the most device time in one
+    call of `step`, with their share of the call's device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.self_device_time_total > 0), reverse=True)
+    total = sum(ms for ms, _, _ in ops) or 1.0
+    return ", ".join(f"{key} {ms:.3f} ms ({100 * ms / total:.1f}%, {count} "
+                     f"calls)" for ms, count, key in ops[:n])
+
+
+def check_run_frame(stream) -> None:
+    """run_frame on frame 0 gives the FrameOutputs of device_frame_step +
+    host_outputs."""
+    from lidar_processing_tpu_torch.runtime.pipeline import (
+        device_frame_step, host_outputs, run_frame)
+    cfg, n = stream.config, int(stream.counts[0])
+    got = run_frame(stream.xyz[0], stream.mask[0], cfg)
+    want = host_outputs(device_frame_step(stream.xyz[0], stream.mask[0],
+                                          cfg), cfg, n)
+    for field in got._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        same = (all(np.array_equal(a, b) for a, b in zip(g, w))
+                and len(g) == len(w)) if isinstance(g, list) else (
+            np.array_equal(g, w) if isinstance(g, np.ndarray) else g == w)
+        if not same:
+            raise AssertionError(f"run_frame.{field} differs from "
+                                 f"device_frame_step + host_outputs")
+    log(f"run_frame frame 0 ({cfg.pipeline.clustering_backend}) == "
+        f"device_frame_step + host_outputs ({got.num_clusters} clusters, "
+        f"{len(got.outlines)} outlines)")
+
+
+def check_neighbors(stream, smi) -> None:
+    """NeighborIndex over frame 0's points, NB_QUERIES queries taken from
+    the frame: k_nearest (k = 16) and radius_search (distance_squared,
+    capacity 256) on the card equal the CPU run bit for bit; timed."""
+    import torch
+    from lidar_processing_tpu_torch.ops.neighbors import NeighborIndex
+    n = int(stream.counts[0])
+    pts = stream.xyz[0, :n]
+    queries = pts[::max(1, n // NB_QUERIES)][:NB_QUERIES].contiguous()
+    r2 = stream.config.clustering.distance_squared
+    gpu, cpu = NeighborIndex(pts), NeighborIndex(pts.cpu())
+    calls = {"k_nearest k=16": lambda idx, q: idx.k_nearest(q, 16),
+             f"radius_search r2={r2} capacity 256":
+             lambda idx, q: idx.radius_search(q, r2, capacity=256)}
+    times, extra = [], ""
+    for name, call in calls.items():
+        got = call(gpu, queries)
+        t0 = time.perf_counter()
+        want = call(cpu, queries.cpu())
+        cpu_s = time.perf_counter() - t0
+        for field, a, b in zip(got._fields, got, want):
+            if not same_bits(a.cpu(), b):
+                raise AssertionError(f"NeighborIndex {name}.{field}: CUDA "
+                                     f"and CPU differ")
+        times.append(f"{name} {cuda_ms(lambda: call(gpu, queries), reps=3):.3f}"
+                     f" ms (CPU {cpu_s:.1f} s)")
+        if "radius" in name:
+            extra = (f"; {int(got.counts.sum())} neighbours in radius, "
+                     f"overflow {int(got.overflow)}")
+    log(f"NeighborIndex frame 0 ({n} points, {queries.shape[0]} queries; "
+        f"{smi}): CUDA == CPU bit for bit; " + ", ".join(times) + extra)
+
+
+def check_seg_scans(device) -> None:
+    """seg_scan_min / seg_scan_max on the card equal the CPU run bit for
+    bit: 131072 rows of (3,) floats over sorted runs, both directions."""
+    import torch
+    from lidar_processing_tpu_torch.ops.scan_utils import (seg_scan_max,
+                                                           seg_scan_min)
+    rng = np.random.default_rng(3)
+    ids = np.sort(rng.integers(0, 20000, 131072)).astype(np.int32)
+    vals = rng.standard_normal((131072, 3)).astype(np.float32)
+    v, i = torch.from_numpy(vals), torch.from_numpy(ids)
+    for fn in (seg_scan_min, seg_scan_max):
+        for reverse in (False, True):
+            if not same_bits(fn(v.to(device), i.to(device),
+                                reverse=reverse).cpu(),
+                             fn(v, i, reverse=reverse)):
+                raise AssertionError(f"{fn.__name__}(reverse={reverse}): "
+                                     f"CUDA and CPU differ")
+    log("seg_scan_min / seg_scan_max (131072 x 3, forward and reverse): "
+        "CUDA == CPU bit for bit")
+
+
+def run_tools(tmp: Path) -> None:
+    """The three tools over the written frames, as a user runs them."""
+    from lidar_processing_tpu_torch.tools import (measure_caps,
+                                                  profile_stages, tier_hist)
+    maxima = measure_caps.main(["--data-dir", str(tmp)])
+    if int(maxima["overflow"]) != 0:
+        raise AssertionError(f"measure_caps: overflow {maxima['overflow']}")
+    if tier_hist.main(["--data-dir", str(tmp),
+                       "--step", str(N_FRAMES // 2)])["frames"] != 2:
+        raise AssertionError("tier_hist did not sample 2 frames")
+    profile_stages.main(["--data-dir", str(tmp), "--frames", str(N_FRAMES),
+                         "--substages"])
+    log(f"tools: measure_caps ({N_FRAMES} frames), tier_hist (2 frames), "
+        f"profile_stages ({N_FRAMES} frames, sub-stages) ran to their end")
+
+
+def run_cellgraph_phase(tmp: Path, device, stixel_results, smi) -> None:
+    """The cellgraph backend and the single-device ops (module docstring,
+    phase 9)."""
+    cg = run_cellgraph_path(tmp, device, stixel_results)
+    check_against_radius_cc(device, "cellgraph")
+    check_cellgraph_cuda_vs_cpu(cg)
+    check_cellgraph_batched(cg)
+    count_host_syncs(cg)
+    measure_cellgraph(cg, smi)
+    check_run_frame(cg)
+    check_neighbors(cg, smi)
+    check_seg_scans(device)
+    run_tools(tmp)
+
+
 def main() -> None:
     device, smi = check_device()
     with phase("build"):
@@ -1281,13 +1628,16 @@ def main() -> None:
             batched_calls = run_batched_path(stream)
         with phase("host stage and entry points"):
             check_host_stage(Path(tmp), stream, route, native_s, smi)
+        with phase("cellgraph and single-device ops"):
+            run_cellgraph_phase(Path(tmp), device, results, smi)
     with phase("step kernels"):
         log_step_kernels(stream)
     with phase("kernels vs twins"):
         res, dbg, tier_calls = frame0_debug(device)
         edges = (dbg["e_u"], dbg["e_v"], dbg["n_edges"])
-        kernels = [check_tier_min_d2(device, tier_calls),
-                   check_union_find(device, edges), check_min_d2(device)]
+        uf_record, hybrid_launches = check_union_find(device, edges)
+        kernels = [check_tier_min_d2(device, tier_calls), uf_record,
+                   check_min_d2(device)]
         check_batched_kernels(batched_calls)
     with phase("probes"):
         kernels += check_probe_kernels(device)
@@ -1297,7 +1647,9 @@ def main() -> None:
         raise AssertionError("the port imported jax")
 
     import torch
-    counts = {**launches, **probe_launches}
+    # union_find's row: the main path's launches and the hybrid path's
+    counts = {**launches, **probe_launches,
+              "union_find": launches["union_find"] + hybrid_launches}
     record = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": counts[k["name"]],

@@ -9,13 +9,16 @@ the parallel shared-memory hook-and-compress kernel (csrc/union_find.cu,
 ECL-CC style), ONE launch of B blocks for B frames; on a CPU tensor it
 runs the plain PyTorch twin ``cc_labels_ref``. The labelling is canonical,
 so both give the same array exactly. The TPU kernel's serial design lives
-on as the probe ``kernels/probe_uf.py::uf_serial``.
+on as the probe ``kernels/probe_uf.py::uf_serial``. ``cc_labels_hybrid``
+(two vectorised hook rounds, then the kernel on the live edges) is the
+JAX package's hybrid; the main path calls ``cc_labels``, as JAX does.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.scan_utils import scatter_drop, take
 from . import _build
 
 _IMAX = 2 ** 31 - 1
@@ -118,3 +121,63 @@ def cc_labels(eu, ev, n_edges, s_cap: int) -> torch.Tensor:
 
 
 cc_labels.launches = 0
+
+
+def cc_labels_hybrid(eu, ev, n_edges, s_cap: int,
+                     serial=None) -> torch.Tensor:
+    """Vectorised min-label hook rounds, then `serial` on the LIVE edges.
+
+    Port of the JAX package's ``cc_labels_hybrid`` (same contract as
+    ``cc_labels``: min node id per component), batched like it: two hook
+    + double-jump rounds resolve the bulk of the edges; the label pairs
+    still straddling two labels are packed into one key, deduped by two
+    single-operand sorts (a stable 3-operand sort that moves them to the
+    front when s_cap > 2^15), and go to ``serial(le_u, le_v, n_live,
+    s_cap)``, by default ``cc_labels``: on a CUDA tensor ONE launch of the
+    union_find kernel for the B frames, on a CPU tensor the twin. eu, ev
+    (B, ec) with n_edges (B,), or one frame without the B, which calls
+    `serial` without the B too.
+    """
+    serial = serial or cc_labels
+    if eu.dim() == 1:
+        def one(u, v, n, s):
+            return serial(u[0], v[0], n[0], s)[None]
+        return cc_labels_hybrid(eu[None], ev[None], n_edges.reshape(1),
+                                s_cap, one)[0]
+    dev = eu.device
+    frames, ec = eu.shape
+    pos = torch.arange(ec, dtype=torch.int32, device=dev)
+    ok = pos < n_edges.reshape(frames, 1)
+    lab = torch.arange(s_cap, dtype=torch.int32,
+                       device=dev).expand(frames, s_cap)
+    for _ in range(2):
+        lu, lv = take(lab, eu), take(lab, ev)
+        mn = torch.where(ok, torch.minimum(lu, lv), _IMAX)
+        # lab.at[idx].min(mn, mode="drop"): idx s_cap is dropped
+        for side in (lu, lv):
+            lab = torch.minimum(lab, scatter_drop(
+                s_cap, torch.where(ok, side, s_cap), mn, _IMAX, "amin"))
+        lab = take(lab, lab)
+        lab = take(lab, lab)
+    lu, lv = take(lab, eu), take(lab, ev)
+    live = ok & (lu != lv)
+    if s_cap <= (1 << 15):
+        key = torch.where(live, torch.minimum(lu, lv) * (1 << 15)
+                          + torch.maximum(lu, lv), 1 << 30)
+        sk = torch.sort(key, dim=1).values
+        # contraction maps many edges onto one label pair: dedup
+        prev = torch.cat([sk.new_full((frames, 1), -1), sk[:, :-1]], 1)
+        uniq = (sk != prev) & (sk < (1 << 30))
+        n_live = uniq.sum(1, dtype=torch.int32)
+        sk = torch.sort(torch.where(uniq, sk, 1 << 30), dim=1).values
+        fresh = pos < n_live[:, None]
+        le_u = torch.where(fresh, sk >> 15, 0)
+        le_v = torch.where(fresh, sk & ((1 << 15) - 1), 0)
+    else:
+        n_live = live.sum(1, dtype=torch.int32)
+        # a stable sort on ~live moves the live pairs to the front
+        order = torch.sort((~live).to(torch.int32), dim=1,
+                           stable=True).indices
+        le_u = torch.where(live, lu, 0).gather(1, order)
+        le_v = torch.where(live, lv, 0).gather(1, order)
+    return take(serial(le_u, le_v, n_live, s_cap), lab)

@@ -3,8 +3,10 @@
 Port of ``lidar_processing_tpu/ops/hull.py``: one sort by cluster label
 makes every cluster a contiguous run of the sorted cloud (the reference's
 per-point scatter into per-cluster clouds, ref: src/processor.cpp:180-200,
-becomes a slice), and small-cluster convex hulls run for all clusters at
-once as a dense successor table walked for ``max_out`` steps
+becomes a slice; ``label_runs`` for full clouds, ``label_runs_presorted``
+for the stixel path's compacted buffers), and small-cluster convex hulls
+run for all clusters at once as a dense successor table walked for
+``max_out`` steps
 (ref: src/polygon_simplification.cpp:96-115, '<20 points => convex').
 The JAX package's vmaps over frames and clusters are written-out batch
 dimensions: the successor tables are built a chunk of clusters at a time
@@ -48,6 +50,31 @@ class LabelRuns(NamedTuple):
     counts: torch.Tensor
     num: torch.Tensor
     overflow: torch.Tensor
+
+
+def label_runs(xyz: torch.Tensor, labels: torch.Tensor,
+               num_slots: int) -> LabelRuns:
+    """Sort labeled clouds by label into contiguous per-cluster runs (the
+    stage-by-stage path of the cellgraph backend).
+
+    xyz (B, N, 3) and labels (B, N), or one frame without the B. One
+    stable sort on the label key carries x, y and z; starts and counts
+    come from one searchsorted of the slot ids over the sorted keys.
+    """
+    if xyz.dim() == 2:
+        return frame_of(label_runs(xyz[None], labels[None], num_slots), 0)
+    frames = xyz.shape[0]
+    valid = (labels >= 0) & (labels < num_slots)
+    key = torch.where(valid, labels, num_slots)
+    skey, sx_, sy_, sz_ = sort_by(key, xyz[..., 0], xyz[..., 1], xyz[..., 2])
+    slots = torch.arange(num_slots + 1, dtype=_I32,
+                         device=xyz.device).expand(frames, -1).contiguous()
+    edges = torch.searchsorted(skey, slots).to(_I32)
+    starts = edges[:, :num_slots]
+    num = torch.where(labels >= 0, labels, -1).amax(1) + 1
+    return LabelRuns(torch.stack([sx_, sy_, sz_], dim=-1), skey, starts,
+                     edges[:, 1:] - starts, torch.clamp(num, max=num_slots),
+                     (labels >= num_slots).sum(1, dtype=_I32))
 
 
 def label_runs_presorted(xyz: torch.Tensor, labels: torch.Tensor,

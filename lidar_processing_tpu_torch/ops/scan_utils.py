@@ -11,7 +11,8 @@ frame batch of the batched step is one call (the JAX package's vmap
 written out). Per-row arguments (a slice start, a count) have the
 leading shape, with or without a trailing axis of 1. A dropping scatter
 gets one dump slot per row, so a dropped index of row b never lands in
-row b + 1.
+row b + 1. The segmented scans ``seg_scan_min`` / ``seg_scan_max`` keep
+the JAX package's signature instead: axis 0, elementwise in trailing dims.
 """
 
 from __future__ import annotations
@@ -110,6 +111,43 @@ def seg_broadcast_first(values: torch.Tensor,
     pos = torch.arange(n, device=seg_ids.device)
     start = torch.where(new, pos, 0).cummax(-1).values
     return values.gather(-1, start)
+
+
+def _seg_scan(values: torch.Tensor, seg_ids: torch.Tensor, op,
+              reverse: bool) -> torch.Tensor:
+    """Running `op` within each run of equal sorted seg_ids along axis 0:
+    a log-step scan of shifted ``where(seg equal, op(a, b), b)`` combines
+    (exact for min and max, whose result does not depend on order)."""
+    ids = seg_ids.reshape(seg_ids.shape + (1,) * (values.dim()
+                                                  - seg_ids.dim()))
+    ids = ids.expand(values.shape)
+    if reverse:
+        values, ids = values.flip(0), ids.flip(0)
+    n, k = values.shape[0], 1
+    while k < n:
+        same = ids[k:] == ids[:-k]
+        values = torch.cat([values[:k], torch.where(
+            same, op(values[:-k], values[k:]), values[k:])], 0)
+        k *= 2
+    return values.flip(0) if reverse else values
+
+
+def seg_scan_min(values: torch.Tensor, seg_ids: torch.Tensor,
+                 reverse: bool = False) -> torch.Tensor:
+    """Running min within each run of equal (sorted) seg_ids.
+
+    values: (N, ...) — scanned along axis 0, elementwise in trailing dims
+    (the JAX package's signature; seg_ids (N,) or values' shape). With
+    reverse=True each element sees the min over the rest of its run, so
+    the value at a run START is the aggregate over the whole run.
+    """
+    return _seg_scan(values, seg_ids, torch.minimum, reverse)
+
+
+def seg_scan_max(values: torch.Tensor, seg_ids: torch.Tensor,
+                 reverse: bool = False) -> torch.Tensor:
+    """seg_scan_min with max."""
+    return _seg_scan(values, seg_ids, torch.maximum, reverse)
 
 
 # ---- JAX indexing semantics, spelled out ---------------------------------

@@ -15,8 +15,8 @@ tree of elementwise adds (``_tree_sum``; a matmul or ``torch.sum`` picks
 its reduction order by shape, and cuBLAS its kernel by batch count), the
 signed distances ``x*nx + y*ny + z*nz`` are one product and two fused
 multiply-adds (what the CPU's float32 matmul computes for an inner size
-of 3), and the LPR prefix sum runs in float64, rounded to float32 (what
-the CPU's float32 cumsum computes, whose accumulator is a double).
+of 3), and the LPR prefix sum is a fixed-order scan of elementwise
+float64 adds (``_prefix_sum``), rounded to float32 once.
 
 Those reductions still run in a different order than XLA's, so labels of
 points lying on the 0.3 m threshold may differ from the JAX package's;
@@ -56,6 +56,19 @@ def _tree_sum(x: torch.Tensor) -> torch.Tensor:
         half = x.shape[-1] // 2
         x = x[..., :half] + x[..., half:]
     return x[..., 0]
+
+
+def _prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis as a Hillis-Steele scan:
+    ceil(log2 n) shifted elementwise adds, the same adds in the same order
+    whatever the leading shape or the device (``cumsum`` picks its order by
+    shape on the card)."""
+    n = x.shape[-1]
+    k = 1
+    while k < n:
+        x = torch.cat([x[..., :k], x[..., k:] + x[..., :-k]], -1)
+        k *= 2
+    return x
 
 
 class SortedSegmentation(NamedTuple):
@@ -98,7 +111,7 @@ def _seed_runs(z_s: torch.Tensor, per_seg: torch.Tensor, num_p: int,
 
     z_min_cut = _f32(-cfg.z_min_outlier_scale * cfg.sensor_height_m, dev)
     k_cfg = min(cfg.number_of_lower_point_representatives, n)
-    csum = torch.cumsum(z_s.double(), -1).float()
+    csum = _prefix_sum(z_s.double()).float()
 
     below = (z_s <= z_min_cut) & in_any
     # per-partition count of below-cutoff points (each partition's below

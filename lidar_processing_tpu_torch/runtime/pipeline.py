@@ -1,9 +1,10 @@
 """End-to-end frame pipeline: segment -> cluster -> polygonize.
 
-Port of ``lidar_processing_tpu/runtime/pipeline.py`` on the default
-``stixel`` backend. The device step runs ground segmentation, clustering,
-label-run sorting and small-cluster convex hulls on the tensors' device,
-fused in sorted space as in the JAX package; ``pack_host_payload`` then
+Port of ``lidar_processing_tpu/runtime/pipeline.py``. The device step runs
+ground segmentation, clustering, label-run sorting and small-cluster
+convex hulls on the tensors' device: fused in sorted space on the default
+``stixel`` backend, stage by stage on the ``cellgraph`` backend, as in the
+JAX package; ``pack_host_payload`` then
 folds everything the host needs into ONE int32 buffer with the JAX
 package's word-for-word layout. On the host, large-cluster outlines run
 over label-sorted run slices through the native C++ module
@@ -35,12 +36,13 @@ import numpy as np
 import torch
 
 from ..config import EngineConfig
+from ..ops import clustering as _cellgraph
 from ..ops import stixel as _stixel
 from ..ops import hull_native
 from ..ops.hull import (LabelRuns, convex_hulls_batched, gather_runs,
-                        label_runs_presorted)
+                        label_runs, label_runs_presorted)
 from ..ops.scan_utils import compact_mask, scatter_drop, set_drop, sort_by
-from ..ops.segmentation import gpf_segment_sorted
+from ..ops.segmentation import gpf_segment, gpf_segment_sorted
 from ..ops.simplify import simplify_ring
 from ..types import (CLUSTER_UNDEFINED, ClusteringResult, PolygonBatch,
                      SegmentationResult, SEG_OBSTACLE, frame_of,
@@ -90,29 +92,35 @@ class FrameOutputs(NamedTuple):
 
 def device_frame_step_batched(xyzs: torch.Tensor, masks: torch.Tensor,
                               config: EngineConfig) -> FrameResult:
-    """Full device pipeline for B padded frames (stixel backend).
+    """Full device pipeline for B padded frames.
 
-    xyzs (B, N, 3) f32, masks (B, N) bool. Segmentation leaves its results
-    in (partition, z) order, clustering consumes them directly and writes
+    xyzs (B, N, 3) f32, masks (B, N) bool. On the stixel backend the
+    stages are fused in sorted space: segmentation leaves its results in
+    (partition, z) order, clustering consumes them directly and writes
     both label arrays back to original order with one sort, and the hull
     stage sorts the compacted obstacle buffers instead of the full padded
-    clouds. Every leaf of the result has a leading B.
+    clouds. Any other backend (``cellgraph``) runs stage by stage, as in
+    the JAX package: segmentation, ``ops/clustering.py`` on the obstacle
+    mask, ``label_runs`` over the full clouds. Every leaf of the result
+    has a leading B.
     """
-    if config.pipeline.clustering_backend != "stixel":
-        raise NotImplementedError(
-            "the PyTorch port runs the 'stixel' clustering backend only; "
-            "the 'cellgraph' backend (ops/clustering.py) is queued in "
-            "ROADMAP.md")
-    ss = gpf_segment_sorted(xyzs, masks, config.segmentation)
-    obstacle_s = ss.valid & (ss.labels == SEG_OBSTACLE)
-    fused = _stixel.cluster_fused(
-        ss.xyz, obstacle_s, ss.valid, ss.orig, ss.labels,
-        config.clustering, config.pipeline)
-    seg = SegmentationResult(fused.seg_labels, ss.planes, ss.plane_valid)
-    runs = label_runs_presorted(
-        fused.sorted_xyz, fused.sorted_label, fused.sorted_orig,
-        NUM_SLOTS, orig_bound=xyzs.shape[1])
-    return _hull_stage(seg, fused.result, runs, config)
+    if config.pipeline.clustering_backend == "stixel":
+        ss = gpf_segment_sorted(xyzs, masks, config.segmentation)
+        obstacle_s = ss.valid & (ss.labels == SEG_OBSTACLE)
+        fused = _stixel.cluster_fused(
+            ss.xyz, obstacle_s, ss.valid, ss.orig, ss.labels,
+            config.clustering, config.pipeline)
+        seg = SegmentationResult(fused.seg_labels, ss.planes, ss.plane_valid)
+        runs = label_runs_presorted(
+            fused.sorted_xyz, fused.sorted_label, fused.sorted_orig,
+            NUM_SLOTS, orig_bound=xyzs.shape[1])
+        return _hull_stage(seg, fused.result, runs, config)
+    seg = gpf_segment(xyzs, masks, config.segmentation)
+    obstacle = masks & (seg.labels == SEG_OBSTACLE)
+    cl = _cellgraph.cluster(xyzs, obstacle, config.clustering,
+                            config.pipeline)
+    runs = label_runs(xyzs, cl.labels, NUM_SLOTS)
+    return _hull_stage(seg, cl, runs, config)
 
 
 def device_frame_step(xyz: torch.Tensor, mask: torch.Tensor,
@@ -194,6 +202,16 @@ def _outlines_from_slices(slices: List[np.ndarray],
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def run_frame(xyz_padded: torch.Tensor, mask: torch.Tensor,
+              config: EngineConfig, n_points: Optional[int] = None,
+              intensity: Optional[np.ndarray] = None) -> FrameOutputs:
+    """Device step + host polygonization for one padded frame (the exact
+    float32 readout)."""
+    fr = device_frame_step(xyz_padded, mask, config)
+    n = int(n_points) if n_points is not None else int(mask.sum())
+    return host_outputs(fr, config, n, intensity=intensity)
 
 
 def host_outputs(fr: FrameResult, config: EngineConfig,
@@ -293,9 +311,12 @@ _Q_MIN, _Q_MAX = 16.0, 8192.0
 def _payload_dims(config: EngineConfig):
     small_cut = min(config.polygonization.small_cluster_size, SMALL_P + 1)
     p_out = min(SMALL_P, small_cut + 1)
-    # the sorted-run buffer has NO rows on the stixel backend
-    lp = min(config.pipeline.payload_large_points,
-             config.pipeline.max_obstacle_points)
+    # the sorted-run buffer has NO rows on the stixel backend, N on the
+    # cellgraph backend; the large-point cap cannot exceed it
+    rows = (config.pipeline.max_obstacle_points
+            if config.pipeline.clustering_backend == "stixel"
+            else config.pipeline.max_points)
+    lp = min(config.pipeline.payload_large_points, rows)
     return (config.pipeline.max_points, config.pipeline.max_obstacle_points,
             NUM_SLOTS, SMALL_C, LARGE_C, p_out, lp)
 

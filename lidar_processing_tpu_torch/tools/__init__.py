@@ -8,4 +8,8 @@ lidar_processing_tpu_torch golden``). Each probe module (``probe_*``) has
 card unless the caller names another device (the plain twins then run).
 ``bench_batch`` is root tools/bench_batch.py's counterpart (ms/frame of
 the batched step at several B); ``step_bench`` compares trees' steps.
+``measure_caps`` (cap occupancies), ``tier_hist`` (ambiguous-pair size
+histograms) and ``profile_stages`` (per-stage times) are the root tools'
+counterparts over a frame directory (``--data-dir``), each a ``main(argv)``
+returning what it prints.
 """

@@ -287,3 +287,47 @@ def test_batched_step_on_card_matches_per_frame(cuda):
         assert torch.equal(pay[b], device_frame_step_packed(x[b], m[b], cfg))
     assert got.clustering.overflow.tolist()[:2] == [0, 0]
     assert int(got.clustering.overflow[2]) > 0
+
+
+def test_hybrid_matches_twin(cuda):
+    """cc_labels_hybrid on the card (its serial stage the union_find
+    kernel, launched once a call) equals cc_labels_ref, per frame and for
+    a batch of the contract graphs."""
+    for name, _, args in _graphs(cuda):
+        before = tuf.cc_labels.launches
+        got = tuf.cc_labels_hybrid(*args, 10240)
+        assert tuf.cc_labels.launches == before + 1
+        assert torch.equal(got.cpu(), tuf.cc_labels_ref(*args, 10240).cpu()), \
+            name
+    graphs = [g for _, _, g in _graphs(cuda)]
+    eu, ev, ne = (torch.stack(a) for a in zip(*graphs))
+    before = tuf.cc_labels.launches
+    got = tuf.cc_labels_hybrid(eu, ev, ne, 10240)
+    assert tuf.cc_labels.launches == before + 1
+    assert torch.equal(got, tuf.cc_labels_ref(eu, ev, ne, 10240))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cellgraph_step_on_card_matches_cpu(cuda, seed):
+    """The cellgraph backend's step on the card equals its CPU run: every
+    FrameResult leaf but the planes (segmentation's f32 sums on the card),
+    given the same obstacle mask to cluster, and the whole payload where
+    the two segmentations agree."""
+    from lidar_processing_tpu_torch.ops import clustering as tcl
+    from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
+    cfg = CFG.replace(pipeline=dataclasses.replace(
+        CFG.pipeline, clustering_backend="cellgraph",
+        max_ambiguous_pairs=8192))
+    xyz, _ = street_scene(seed, "small")
+    x, m = (torch.from_numpy(a) for a in pad_frame(xyz, CAP))
+    seg = gpf_segment(x.to(cuda), m.to(cuda), cfg.segmentation)
+    obst = m.to(cuda) & (seg.labels == SEG_OBSTACLE)
+    on_gpu = tcl.cluster(x.to(cuda), obst, cfg.clustering, cfg.pipeline)
+    on_cpu = tcl.cluster(x, obst.cpu(), cfg.clustering, cfg.pipeline)
+    for g, c in zip(on_gpu, on_cpu):
+        assert g.dtype == c.dtype and torch.equal(g.cpu(), c)
+    gpu_seg = seg.labels.cpu()
+    cpu_seg = gpf_segment(x, m, cfg.segmentation).labels
+    if torch.equal(gpu_seg, cpu_seg):
+        pay_gpu = device_frame_step_packed(x.to(cuda), m.to(cuda), cfg).cpu()
+        assert torch.equal(pay_gpu, device_frame_step_packed(x, m, cfg))

@@ -244,3 +244,46 @@ def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
     first = _build._digest()
     (src / "k.cu").write_text("// b\n")
     assert _build._digest() != first
+
+
+@pytest.mark.parametrize("seed,s_cap,n_edges", [
+    (0, 512, 900), (2, 2048, 4000), (4, 8192, 20000), (3, 128, 0),
+    (5, 1 << 16, 5000)])    # above the packed-key limit: 3-operand path
+def test_hybrid_matches_jax_hybrid(seed, s_cap, n_edges):
+    """cc_labels_hybrid(serial=cc_labels_ref) against the JAX package's
+    cc_labels_hybrid(serial=cc_labels_xla) on tests/test_kernels.py's
+    graphs, and against cc_labels_ref alone; the default serial stage is
+    cc_labels (its twin on the CPU)."""
+    eu, ev = _graph(seed, s_cap, n_edges)
+    ne = torch.tensor(n_edges, dtype=torch.int32)
+    want = np.asarray(juf.cc_labels_hybrid(
+        jnp.asarray(eu), jnp.asarray(ev), jnp.int32(n_edges), s_cap,
+        serial=juf.cc_labels_xla))
+    args = (torch.from_numpy(eu), torch.from_numpy(ev), ne, s_cap)
+    got = tuf.cc_labels_hybrid(*args, serial=tuf.cc_labels_ref)
+    assert got.dtype == torch.int32 and got.shape == (s_cap,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(),
+                                  tuf.cc_labels_ref(*args).numpy())
+    if s_cap <= 10240:
+        assert torch.equal(tuf.cc_labels_hybrid(*args), got)
+
+
+def test_hybrid_batched_equals_frames_alone():
+    """Three frames of different edge counts (one with none) in one call:
+    each row equals the frame alone, and the serial stage is called once
+    for the batch with (B, ec) edges."""
+    graphs = [_graph(s, 2048, 4000) for s in (2, 3, 6)]
+    eu, ev = (torch.from_numpy(np.stack(a)) for a in zip(*graphs))
+    ne = torch.tensor([4000, 0, 1500], dtype=torch.int32)
+    calls = []
+
+    def serial(*a):
+        calls.append(a[0].shape)
+        return tuf.cc_labels_ref(*a)
+    got = tuf.cc_labels_hybrid(eu, ev, ne, 2048, serial=serial)
+    assert calls == [eu.shape]
+    for b in range(3):
+        one = tuf.cc_labels_hybrid(eu[b], ev[b], ne[b], 2048)
+        assert torch.equal(got[b], one), b
+        assert torch.equal(one, tuf.cc_labels_ref(eu[b], ev[b], ne[b], 2048))

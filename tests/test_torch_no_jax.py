@@ -2,7 +2,8 @@
 
 A subprocess blocks jax (``sys.modules["jax"] = None`` makes any
 ``import jax`` raise), imports every module of the port and runs the slice
-on a small CPU frame — as on the GPU machine, which has no jax.
+on a small CPU frame, on both clustering backends — as on the GPU
+machine, which has no jax.
 """
 
 import pathlib
@@ -37,6 +38,12 @@ x, m = pad_frame(xyz, 4096)
 pay = device_frame_step_packed(torch.from_numpy(x), torch.from_numpy(m), cfg)
 out = host_outputs_packed(pay, cfg, xyz.shape[0], intensity=inten)
 assert out.overflow == 0 and len(out.outlines) == out.num_clusters > 0
+cell = cfg.replace(pipeline=dataclasses.replace(
+    pcfg, clustering_backend="cellgraph", max_ambiguous_pairs=8192))
+pay = device_frame_step_packed(torch.from_numpy(x), torch.from_numpy(m), cell)
+cell_out = host_outputs_packed(pay, cell, xyz.shape[0], with_outlines=False)
+assert cell_out.overflow == 0 and cell_out.num_clusters == out.num_clusters
+assert np.array_equal(cell_out.cluster_labels, out.cluster_labels)
 assert sys.modules["jax"] is None
 assert not any(k.startswith(("jax.", "jaxlib", "lidar_processing_tpu."))
                for k in sys.modules)

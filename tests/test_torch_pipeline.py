@@ -146,19 +146,29 @@ def _leaves(tree, prefix=""):
 
 
 def test_outline_cap_and_unported_paths():
-    """max_points_in_polygon caps every outline; the cellgraph backend says
-    it is not ported."""
+    """max_points_in_polygon caps every outline; the cellgraph backend
+    (once unported) runs and its payload equals the JAX package's word for
+    word, with the same clusters as the stixel backend."""
     xyz, _, x, m = _frame(0)
     poly = dataclasses.replace(TCFG.polygonization, max_points_in_polygon=6)
     cfg = TCFG.replace(polygonization=poly)
     fr = tpipe.device_frame_step(torch.from_numpy(x), torch.from_numpy(m), cfg)
     out = tpipe.host_outputs(fr, cfg, xyz.shape[0])
     assert out.outlines and all(len(o) <= 6 for o in out.outlines)
-    cellgraph = TCFG.replace(pipeline=dataclasses.replace(
-        TCFG.pipeline, clustering_backend="cellgraph"))
-    with pytest.raises(NotImplementedError):
-        tpipe.device_frame_step(torch.from_numpy(x), torch.from_numpy(m),
-                                cellgraph)
+    jcell = JCFG.replace(pipeline=dataclasses.replace(
+        JCFG.pipeline, clustering_backend="cellgraph",
+        max_ambiguous_pairs=8192))
+    tcell = config_from_jax(jcell)
+    got = tpipe.device_frame_step_packed(torch.from_numpy(x),
+                                         torch.from_numpy(m), tcell)
+    want = jpipe.device_frame_step_packed(jnp.asarray(x), jnp.asarray(m),
+                                          jcell)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    cell_out = tpipe.host_outputs_packed(got, tcell, xyz.shape[0],
+                                         with_outlines=False)
+    np.testing.assert_array_equal(cell_out.cluster_labels,
+                                  out.cluster_labels)
+    assert cell_out.overflow == 0 and cell_out.num_clusters == out.num_clusters
 
 
 def test_convex_outline_mode_matches_jax(jax_native):

@@ -166,3 +166,25 @@ def test_batched_primitives_equal_rows_alone(case):
             assert g[b].dtype == w.dtype and g[b].shape == w.shape, name
             np.testing.assert_array_equal(g[b].numpy(), w.numpy(),
                                           err_msg=f"{name} row {b}")
+
+
+@pytest.mark.parametrize("op,reverse,trailing", [
+    ("min", False, ()), ("max", True, (3,)), ("min", True, (2, 2)),
+    ("max", False, (2, 2))])
+def test_seg_scans_match_jax(op, reverse, trailing):
+    """seg_scan_min / seg_scan_max against the JAX package's associative
+    scans: along axis 0, elementwise in trailing dims, forward and
+    reverse, int and float values, runs of length 1 and long runs."""
+    rng = np.random.default_rng(len(trailing) + 3 * reverse)
+    n = 150
+    # sorted ids: five runs of length 1, then long runs
+    ids = np.concatenate([np.arange(-5, 0), _runs(rng, n - 5, 40)]
+                         ).astype(np.int32)
+    for vals in (rng.integers(-1000, 1000, (n, *trailing)).astype(np.int32),
+                 rng.standard_normal((n, *trailing)).astype(np.float32)):
+        jfn = jax.jit(getattr(jsu, f"seg_scan_{op}"),
+                      static_argnames="reverse")
+        tfn = getattr(tsu, f"seg_scan_{op}")
+        want = jfn(jnp.asarray(vals), jnp.asarray(ids), reverse=reverse)
+        _eq(tfn(torch.from_numpy(vals), torch.from_numpy(ids),
+                reverse=reverse), want)

@@ -136,3 +136,26 @@ def test_gpf_segment_batched_equals_frames_alone():
             for g, w in zip(torch.utils._pytree.tree_leaves(got),
                             torch.utils._pytree.tree_leaves(want)):
                 assert g[b].dtype == w.dtype and torch.equal(g[b], w)
+
+
+def test_lpr_prefix_sum_is_batch_invariant():
+    """The LPR prefix sum (a fixed-order scan of elementwise float64
+    adds): a row alone equals the same row inside a B = 3 batch bit for
+    bit, and it is a prefix sum (float64 to 1e-12 of numpy's cumsum)."""
+    rng = np.random.default_rng(0)
+    z = rng.uniform(-2.5, 3.0, (3, 4099)).astype(np.float32)
+    batch = tseg._prefix_sum(torch.from_numpy(z).double())
+    for b in range(3):
+        alone = tseg._prefix_sum(torch.from_numpy(z[b]).double()[None])[0]
+        assert torch.equal(batch[b], alone), b
+        np.testing.assert_allclose(alone.numpy(),
+                                   np.cumsum(z[b].astype(np.float64)),
+                                   rtol=0, atol=1e-12)
+    seeds, seg = tseg._seed_runs(torch.from_numpy(z), torch.tensor(
+        [[2049], [1000], [0]], dtype=torch.int32), 2, TSCFG)
+    for b in range(3):
+        one = tseg._seed_runs(torch.from_numpy(z[b:b + 1]),
+                              torch.tensor([[(2049, 1000, 0)[b]]],
+                                           dtype=torch.int32), 2, TSCFG)
+        assert torch.equal(seeds[b], one[0][0]) and torch.equal(seg[b],
+                                                                one[1][0])

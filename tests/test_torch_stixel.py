@@ -8,6 +8,7 @@ runs its XLA twins.
 """
 
 import dataclasses
+import functools
 import math
 
 import jax.numpy as jnp
@@ -177,6 +178,18 @@ def _assert_debug_equal(got, want, path=""):
     np.testing.assert_array_equal(g, w, err_msg=path)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_debug(name):
+    """A scene's padded cloud, obstacle mask (JAX segmentation) and the
+    JAX package's cluster_debug of it, computed once per test process."""
+    (x, m), _ = _sorted_inputs(name, CFG)
+    seg = jseg.gpf_segment(jnp.asarray(x), jnp.asarray(m), CFG.segmentation)
+    obst = np.asarray(m & (np.asarray(seg.labels) == SEG_OBSTACLE))
+    res, dbg = jsx.cluster_debug(jnp.asarray(x), jnp.asarray(obst),
+                                 CFG.clustering, CFG.pipeline)
+    return x, obst, res, dbg
+
+
 @pytest.mark.parametrize("name", ["street0", "boxes"])
 def test_cluster_debug_matches_jax(name):
     """Every entry of the debug dict equals the JAX package's, except the
@@ -185,11 +198,7 @@ def test_cluster_debug_matches_jax(name):
     bound (lanes x 1e9, about its sum of magnitudes). On street0 the
     port's sum is 4e-7 of that bound from the float64 sum and XLA's CPU
     reduction 5.1e-6: its error grows with the terms per accumulator."""
-    (x, m), _ = _sorted_inputs(name, CFG)
-    seg = jseg.gpf_segment(jnp.asarray(x), jnp.asarray(m), CFG.segmentation)
-    obst = np.asarray(m & (np.asarray(seg.labels) == SEG_OBSTACLE))
-    want_res, want = jsx.cluster_debug(jnp.asarray(x), jnp.asarray(obst),
-                                       CFG.clustering, CFG.pipeline)
+    x, obst, want_res, want = _jax_debug(name)
     tcfg = config_from_jax(CFG)
     got_res, got = tsx.cluster_debug(torch.from_numpy(x),
                                      torch.from_numpy(obst),
@@ -300,3 +309,55 @@ def test_cluster_fused_builds_no_debug_dict(monkeypatch):
     got = tsx.cluster_fused(*to_torch(args), tcfg.clustering, tcfg.pipeline)
     _assert_tree_equal(got, want)
     assert calls == [(False, None)]
+
+
+@pytest.mark.parametrize("name", ["street0", "boxes"])
+def test_cap_tools_match_jax(name):
+    """tools/measure_caps.py's per-frame quantities and tools/tier_hist.py's
+    ambiguous-pair sizes, from the port's cluster_debug, equal what the
+    JAX tools compute from the JAX package's on the same obstacles
+    (tools/measure_caps.py:28-57, tools/tier_hist.py:49-72)."""
+    from lidar_processing_tpu_torch.tools import measure_caps, tier_hist
+    x, obst, res, dbg = _jax_debug(name)
+    tcfg = config_from_jax(CFG)
+    got = measure_caps.cluster_stats(torch.from_numpy(x),
+                                     torch.from_numpy(obst), tcfg)
+    s_cap = CFG.pipeline.max_supernodes
+    e_u, e_v, e_ok = dbg["e_u"], dbg["e_v"], dbg["e_ok"]
+    imax = jnp.int32(np.iinfo(np.int32).max)
+    lab = jnp.arange(s_cap, dtype=jnp.int32)
+    mn = jnp.where(e_ok, jnp.minimum(lab[e_u], lab[e_v]), imax)
+    lab = lab.at[jnp.where(e_ok, lab[e_u], s_cap)].min(mn, mode="drop")
+    lab = lab.at[jnp.where(e_ok, lab[e_v], s_cap)].min(mn, mode="drop")
+    for _ in range(4):
+        lab = lab[lab]
+    live = e_ok & (lab[e_u] != lab[e_v])
+    want = dict(
+        n_obst=dbg["sp"].n_obst, n_cells=dbg["cells"].n_cells,
+        n_sn=dbg["sn"].n_sn,
+        n_cols=jnp.sum((dbg["col_sn_count"] > 0).astype(jnp.int32)),
+        n_cpairs=dbg["n_cpairs"], n_snp=dbg["n_snp"],
+        n_edges=jnp.sum(e_ok.astype(jnp.int32)),
+        n_live=jnp.sum(live.astype(jnp.int32)),
+        tiers1=dbg["tiers1"], tiers2=dbg["tiers2"], n_cls=dbg["n_cls"],
+        overflow=res.overflow, num=res.num_clusters)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        w = np.asarray(w)
+        assert got[k].dtype == w.dtype, k
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    assert int(got["n_live"]) > 0
+
+    _, tdbg = tsx.cluster_debug(torch.from_numpy(x), torch.from_numpy(obst),
+                                tcfg.clustering, tcfg.pipeline)
+    cnt = np.asarray(dbg["cells"].count)
+    intra = np.concatenate([np.maximum(cnt, np.roll(cnt, -k))[
+        np.asarray(dbg[f"intra_tests{k}"])] for k in (1, 2)])
+    snc = np.asarray(dbg["sn"].count)
+    pu, pv = np.asarray(dbg["pu"]), np.asarray(dbg["pv"])
+    amb = ((np.arange(len(pu)) < int(dbg["n_snp"]))
+           & ~np.asarray(dbg["impossible"]) & ~np.asarray(dbg["certain"]))
+    for g, w in zip(tier_hist.pair_sizes(tdbg),
+                    (intra, np.minimum(snc[pu], snc[pv])[amb],
+                     np.maximum(snc[pu], snc[pv])[amb])):
+        np.testing.assert_array_equal(g, w)
