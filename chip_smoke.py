@@ -31,7 +31,7 @@ Phases (any failure raises, so the script never exits 0 after one):
      (counts set to 0 before each B and read after); ms per frame at each
      B (CUDA events around the batched calls, best of 3 passes) and the
      peak device memory of one step at each B; the B = 8 step's kernel
-     calls are recorded for phase 12;
+     calls are recorded for phase 13;
   8. host stage and entry points: frame 0's large-cluster outlines native
      vs the scipy chain (chamfer < 0.05 each), a broken native build
      raising instead of reaching scipy, host p50 and end to end of the 8
@@ -55,11 +55,29 @@ Phases (any failure raises, so the script never exits 0 after one):
      4096 queries) CUDA == CPU, timed; seg_scan_min / seg_scan_max CUDA ==
      CPU; tools/measure_caps (8 frames), tier_hist (2) and profile_stages
      (8, with sub-stages) run to their end;
-  10. torch.profiler's count of CUDA kernels in one device step at B = 1
+  10. sharded and spatial (parallel/), on one NCCL rank (world size 1) at
+     DEFAULT_CONFIG full width over the 8 frames: their densest x-band at
+     4 and 8 bands printed; cluster_spatial at 8 and 4 shards on each
+     frame's obstacle mask == stixel.cluster bit for bit, overflow 0, two
+     tier_min_d2 launches and one union_find a call (frame 0's 8-band
+     calls recorded and held against the twins bit for bit);
+     device_frame_step_spatial at 8 shards with block_points 131072 (the
+     step distributes every point): seg within max(2, n // 1000) labels
+     of device_frame_step, clustering == stixel.cluster of its own
+     obstacle mask, overflow and hull_overflow 0, n_small + n_large ==
+     num_clusters; sharded_batch_step at B = 8 == device_frame_step_batched
+     leaf for leaf; sharded_pipeline_2d on a 2 x 4 mesh (frames 0-1) ==
+     gpf_segment + stixel.cluster; the launches of this driven path (counts
+     set to 0 before, read after) join rows 1-2 of the JSON line; 0 host
+     syncs in a cluster_spatial call; p50 (CUDA events), kernels, device
+     time and peak memory of cluster_spatial (4, 8 shards) beside
+     stixel.cluster and of the spatial step beside device_frame_step; the
+     scaling bench's main() on this one rank;
+  11. torch.profiler's count of CUDA kernels in one device step at B = 1
      (at most 2995) and in one batched step at B = 8;
-  11. synthetic frame 0 at DEFAULT_CONFIG through cluster_debug, recording
+  12. synthetic frame 0 at DEFAULT_CONFIG through cluster_debug, recording
      the two tier_min_d2 calls of its step and its edge list;
-  12. kernels vs their plain PyTorch twins on the card, at the shapes the
+  13. kernels vs their plain PyTorch twins on the card, at the shapes the
      main path gives them: tier_min_d2 on frame 0's two calls and on
      crafted descriptor sets at both shipped tier tables (bit for bit,
      and equal to the old design, _stacked_windows + min_d2 per tier);
@@ -74,7 +92,7 @@ Phases (any failure raises, so the script never exits 0 after one):
      take (bound); then both main-path kernels' batched launches on
      frames 0-7's own calls (phase 7) against 8 single launches and the
      batched twins, bit for bit, timed;
-  13. probes: the kernels of the TPU probes in tools/ against their twins
+  14. probes: the kernels of the TPU probes in tools/ against their twins
      at the JAX probes' own sizes (union-find variants equal, pair minima
      <= 4 ULP, mosaic2 A and C equal, B within 1e-5 of the sum of |terms|),
      timed the same way; frame 0's edge list through every union-find
@@ -83,7 +101,7 @@ Phases (any failure raises, so the script never exits 0 after one):
      min_d2_planar (bit for bit), both timed; then the probe entry points
      (tools/probe_*.main) with the launch counts reset: every probe kernel
      must have run;
-  14. no jax imported.
+  15. no jax imported.
 
 Prints each phase's seconds, the kernels' JSON record, the card's name and
 power limit, and, as its last line, {"ok": true, "device": {...}}.
@@ -94,6 +112,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import math
 import os
 import platform
 import statistics
@@ -118,6 +137,8 @@ BATCHES = (4, 8)           # frames per batched step, beside B = 1
 KERNELS_B1_MAX = 2995      # CUDA kernels a B = 1 step: 2852 measured + 5%
 CELL_CAPACITY = 128        # the cellgraph phase's cell_capacity (shipped: 64)
 NB_QUERIES = 4096          # NeighborIndex queries on frame 0
+SPATIAL_SHARDS = (8, 4)    # x-band shards of the parallel phase
+SPATIAL_BLOCK_POINTS = 131072  # the spatial step's block_points (32768)
 
 
 def log(msg: str) -> None:
@@ -1602,6 +1623,309 @@ def run_cellgraph_phase(tmp: Path, device, stixel_results, smi) -> None:
     run_tools(tmp)
 
 
+def nccl_rank():
+    """Join one NCCL rank on the card (world size 1) at a free localhost
+    port: the card's layout of the parallel path. No gloo fallback."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"process group backend {dist.get_backend()}")
+
+
+def band_maxima(x, m, obst, r: float) -> str:
+    """Each frame's densest x-band, over all points and over obstacles,
+    at 4 and 8 bands (parallel/spatial.py::_distribute, uncapped)."""
+    from lidar_processing_tpu_torch.parallel.spatial import _distribute
+    out = []
+    for s in SPATIAL_SHARDS[::-1]:
+        for what, mask in (("points", m), ("obstacles", obst)):
+            bo = _distribute(x, mask, s, x.shape[1], r)[1]
+            top = (bo >= 0).sum(-1).amax(-1).tolist()
+            out.append(f"{s} bands, {what}: {min(top)}-{max(top)}")
+    return "; ".join(out)
+
+
+def spatial_config(cfg):
+    """DEFAULT_CONFIG with the x-band cut of the spatial step:
+    block_points SPATIAL_BLOCK_POINTS (shipped 32768), since the step
+    distributes every point, not only obstacles."""
+    import dataclasses
+    return cfg.replace(spatial=dataclasses.replace(
+        cfg.spatial, block_points=SPATIAL_BLOCK_POINTS))
+
+
+def drive_spatial(stream, obst):
+    """The parallel path, driven as a user calls it on one NCCL rank, with
+    the kernel counts set to 0 just before and read just after:
+    cluster_spatial at 8 and 4 shards on each frame's obstacle mask,
+    device_frame_step_spatial at 8 shards on each frame,
+    sharded_batch_step at B = 8 and sharded_pipeline_2d on a 2 x 4 mesh
+    (frames 0-1). Each cluster_spatial call must launch tier_min_d2 twice
+    and union_find once; frame 0's 8-shard calls are recorded. Returns
+    (results, launches, recorded kernel calls)."""
+    import torch
+    from lidar_processing_tpu_torch.kernels.tier_min_d2 import tier_min_d2
+    from lidar_processing_tpu_torch.kernels.union_find import cc_labels
+    from lidar_processing_tpu_torch.ops import stixel as sx
+    from lidar_processing_tpu_torch.parallel.frame_spatial import (
+        device_frame_step_spatial)
+    from lidar_processing_tpu_torch.parallel.sharded import (
+        make_mesh, make_mesh_2d, sharded_batch_step, sharded_pipeline_2d)
+    from lidar_processing_tpu_torch.parallel.spatial import cluster_spatial
+    cfg = stream.config
+    x, m = stream.xyz[:N_FRAMES], stream.mask[:N_FRAMES]
+    calls = {"tier_min_d2": [], "union_find": []}
+    kernels = (sx.tier_min_d2, sx.cc_labels)
+
+    def recording(name, fn):
+        def record(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return record
+
+    res = {"spatial": {}}
+    tier_min_d2.launches = cc_labels.launches = 0
+    for s in SPATIAL_SHARDS:
+        mesh = make_mesh(s, "space")
+        for f in range(N_FRAMES):
+            before = (tier_min_d2.launches, cc_labels.launches)
+            if (s, f) == (SPATIAL_SHARDS[0], 0):
+                sx.tier_min_d2 = recording("tier_min_d2", kernels[0])
+                sx.cc_labels = recording("union_find", kernels[1])
+            try:
+                res["spatial"][s, f] = cluster_spatial(
+                    mesh, x[f], obst[f], cfg.clustering, cfg.pipeline,
+                    cfg.spatial)
+            finally:
+                sx.tier_min_d2, sx.cc_labels = kernels
+            got = (tier_min_d2.launches - before[0],
+                   cc_labels.launches - before[1])
+            if got != (2, 1):
+                raise AssertionError(f"cluster_spatial {s} shards frame {f}:"
+                                     f" launches (tier_min_d2, union_find) "
+                                     f"{got}, not (2, 1)")
+    mesh8 = make_mesh(8, "space")
+    scfg = spatial_config(cfg)
+    res["step"] = [device_frame_step_spatial(mesh8, x[f], m[f], scfg)
+                   for f in range(N_FRAMES)]
+    res["batch"] = sharded_batch_step(make_mesh(N_FRAMES, "data"), x, m, cfg)
+    res["2d"] = sharded_pipeline_2d(make_mesh_2d(2, 4), x[:2], m[:2], cfg)
+    torch.cuda.synchronize()
+    launches = {"tier_min_d2": tier_min_d2.launches,
+                "union_find": cc_labels.launches}
+    return res, launches, calls
+
+
+def check_spatial(stream, res, singles, batch8) -> None:
+    """The driven results against the single-device path (module
+    docstring, phase 10)."""
+    import torch
+    from lidar_processing_tpu_torch.ops import stixel as sx
+    from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
+    from lidar_processing_tpu_torch.runtime.pipeline import device_frame_step
+    from lidar_processing_tpu_torch.types import SEG_OBSTACLE, frame_of
+    cfg = stream.config
+    x, m = stream.xyz[:N_FRAMES], stream.mask[:N_FRAMES]
+    for (s, f), got in res["spatial"].items():
+        want = singles[f]
+        if not all(same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"cluster_spatial {s} shards frame {f}: "
+                                 f"differs from stixel.cluster")
+        if int(got.overflow) != 0:
+            raise AssertionError(f"cluster_spatial {s} shards frame {f}: "
+                                 f"overflow {int(got.overflow)}")
+    seg_diff = []
+    for f, fr in enumerate(res["step"]):
+        n = int(stream.counts[f])
+        one = device_frame_step(x[f], m[f], cfg)
+        seg_diff.append(int((fr.seg.labels[:n] != one.seg.labels[:n]).sum()))
+        if seg_diff[-1] > max(2, n // 1000):
+            raise AssertionError(f"device_frame_step_spatial frame {f}: "
+                                 f"{seg_diff[-1]} of {n} seg labels differ")
+        own = m[f] & (fr.seg.labels == SEG_OBSTACLE)
+        ref = sx.cluster(x[f], own, cfg.clustering, cfg.pipeline)
+        if not all(same_bits(a, b) for a, b in zip(fr.clustering, ref)):
+            raise AssertionError(f"device_frame_step_spatial frame {f}: "
+                                 f"clustering differs from stixel.cluster "
+                                 f"of its own obstacle mask")
+        if (int(fr.clustering.overflow), int(fr.hull_overflow)) != (0, 0) \
+                or int(fr.n_small) + int(fr.n_large) \
+                != int(fr.clustering.num_clusters):
+            raise AssertionError(
+                f"device_frame_step_spatial frame {f}: overflow "
+                f"{int(fr.clustering.overflow)}, hull_overflow "
+                f"{int(fr.hull_overflow)}, {int(fr.n_small)} + "
+                f"{int(fr.n_large)} slots for "
+                f"{int(fr.clustering.num_clusters)} clusters")
+    if not all(same_bits(a, b) for a, b in zip(
+            torch.utils._pytree.tree_leaves(res["batch"]),
+            torch.utils._pytree.tree_leaves(batch8))):
+        raise AssertionError("sharded_batch_step B=8 differs from "
+                             "device_frame_step_batched")
+    seg2, cl2 = res["2d"]
+    if not all(same_bits(a, b) for a, b in zip(
+            torch.utils._pytree.tree_leaves(seg2),
+            torch.utils._pytree.tree_leaves(gpf_segment(
+                x[:2], m[:2], cfg.segmentation)))):
+        raise AssertionError("sharded_pipeline_2d: segmentation differs "
+                             "from gpf_segment")
+    ref2 = sx.cluster(x[:2], m[:2] & (seg2.labels == SEG_OBSTACLE),
+                      cfg.clustering, cfg.pipeline)
+    if not all(same_bits(a, b) for a, b in zip(cl2, ref2)) \
+            or int(cl2.overflow.sum()) != 0:
+        raise AssertionError("sharded_pipeline_2d: clustering differs from "
+                             "stixel.cluster or overflows")
+    log(f"parallel path (one NCCL rank): cluster_spatial at "
+        f"{'/'.join(map(str, SPATIAL_SHARDS))} shards == stixel.cluster bit "
+        f"for bit on frames 0-{N_FRAMES - 1}, overflow 0; "
+        f"device_frame_step_spatial (8 shards, block_points "
+        f"{SPATIAL_BLOCK_POINTS}): seg labels differing from "
+        f"device_frame_step {seg_diff}, clustering == stixel.cluster of its "
+        f"own obstacle mask, overflow 0, hull_overflow 0, n_small + n_large "
+        f"== num_clusters "
+        f"{[int(fr.clustering.num_clusters) for fr in res['step']]}; "
+        f"sharded_batch_step B={N_FRAMES} == device_frame_step_batched leaf "
+        f"for leaf; sharded_pipeline_2d (2 x 4, frames 0-1) == gpf_segment "
+        f"+ stixel.cluster")
+
+
+def check_spatial_kernels(calls) -> None:
+    """Frame 0's 8-shard cluster_spatial kernel calls (one launch each
+    for the 8 bands) against the twins on the card, bit for bit."""
+    from lidar_processing_tpu_torch.kernels.tier_min_d2 import (
+        tier_min_d2, tier_min_d2_ref)
+    from lidar_processing_tpu_torch.kernels.union_find import (cc_labels,
+                                                               cc_labels_ref)
+    if (len(calls["tier_min_d2"]), len(calls["union_find"])) != (2, 1):
+        raise AssertionError(f"frame 0's cluster_spatial: {calls} calls")
+    shapes = []
+    for name, fn, twin in (("tier_min_d2", tier_min_d2, tier_min_d2_ref),
+                           ("union_find", cc_labels, cc_labels_ref)):
+        for args in calls[name]:
+            if not same_bits(fn(*args), twin(*args)):
+                raise AssertionError(f"{name} on frame 0's 8 bands: kernel "
+                                     f"differs from its twin")
+            shapes.append(f"{name} {tuple(args[0].shape)}")
+    log(f"spatial kernels (frame 0, 8 bands, one launch each): "
+        f"{', '.join(shapes)}: kernel == twin bit for bit")
+
+
+def spatial_host_syncs(stream, obst) -> int:
+    """Host syncs inside one cluster_spatial call at 8 shards (torch's
+    sync debug mode, as count_host_syncs reads the step)."""
+    import warnings
+    import torch
+    from lidar_processing_tpu_torch.parallel.sharded import make_mesh
+    from lidar_processing_tpu_torch.parallel.spatial import cluster_spatial
+    cfg, mesh = stream.config, make_mesh(8, "space")
+    call = lambda: cluster_spatial(  # noqa: E731
+        mesh, stream.xyz[0], obst[0], cfg.clustering, cfg.pipeline,
+        cfg.spatial)
+    call()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    log(f"host syncs in one cluster_spatial call (8 shards): {len(syncs)}"
+        + "".join(f"\n  at {s}" for s in sorted(set(syncs))))
+    if syncs:
+        raise AssertionError("cluster_spatial waits on the card")
+    return len(syncs)
+
+
+def time_spatial(stream, obst, smi) -> dict:
+    """p50 over the 8 frames of CUDA-event times (3 repeats a frame) of
+    cluster_spatial at 4 and 8 shards beside stixel.cluster on the same
+    masks, and of device_frame_step_spatial (8 shards) beside
+    device_frame_step; CUDA kernels of one call of each (torch.profiler)
+    and the peak device memory of one call (its own)."""
+    import torch
+    from lidar_processing_tpu_torch.ops import stixel as sx
+    from lidar_processing_tpu_torch.parallel.frame_spatial import (
+        device_frame_step_spatial)
+    from lidar_processing_tpu_torch.parallel.sharded import make_mesh
+    from lidar_processing_tpu_torch.parallel.spatial import cluster_spatial
+    from lidar_processing_tpu_torch.runtime.pipeline import device_frame_step
+    from lidar_processing_tpu_torch.tools.step_bench import step_kernels
+    cfg, dev = stream.config, stream.device
+    x, m = stream.xyz, stream.mask
+    scfg = spatial_config(cfg)
+    meshes = {s: make_mesh(s, "space") for s in SPATIAL_SHARDS}
+    runs = {f"cluster_spatial {s}": (lambda f, s=s: cluster_spatial(
+        meshes[s], x[f], obst[f], cfg.clustering, cfg.pipeline,
+        cfg.spatial)) for s in SPATIAL_SHARDS[::-1]}
+    runs["stixel.cluster"] = lambda f: sx.cluster(
+        x[f], obst[f], cfg.clustering, cfg.pipeline)
+    runs["device_frame_step_spatial 8"] = lambda f: (
+        device_frame_step_spatial(meshes[8], x[f], m[f], scfg))
+    runs["device_frame_step"] = lambda f: device_frame_step(x[f], m[f], cfg)
+    out = {}
+    for name, run in runs.items():
+        p50 = statistics.median(cuda_ms(lambda f=f: run(f), reps=3)
+                                for f in range(N_FRAMES))
+        prof = step_kernels(lambda: run(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        run(0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        out[name] = {"p50_ms": p50, **prof, "peak_mib": peak / 2 ** 20}
+    log(f"parallel path timings ({smi}; one NCCL rank; CUDA events, p50 "
+        f"over {N_FRAMES} frames x 3; kernels and device ms of one call "
+        f"from torch.profiler; peak memory of one call, its own): "
+        + "; ".join(f"{k} {v['p50_ms']:.3f} ms, {v['kernels']} kernels, "
+                    f"{v['busy_ms']:.3f} ms device, {v['peak_mib']:.0f} MiB"
+                    for k, v in out.items()))
+    return out
+
+
+def run_spatial_phase(stream, smi) -> dict:
+    """The sharded and spatial phase (module docstring, phase 10), on one
+    NCCL rank; returns the kernel launches of its driven path."""
+    import torch
+    import torch.distributed as dist
+    from lidar_processing_tpu_torch.ops import stixel as sx
+    from lidar_processing_tpu_torch.runtime.pipeline import (
+        device_frame_step_batched)
+    from lidar_processing_tpu_torch.tools import scaling_bench
+    from lidar_processing_tpu_torch.types import SEG_OBSTACLE
+    cfg = stream.config
+    x, m = stream.xyz[:N_FRAMES], stream.mask[:N_FRAMES]
+    nccl_rank()
+    try:
+        batch8 = device_frame_step_batched(x, m, cfg)
+        obst = m & (batch8.seg.labels == SEG_OBSTACLE)
+        log("x-band populations, frames 0-7 (densest band): " + band_maxima(
+            x, m, obst, math.sqrt(cfg.clustering.distance_squared)))
+        singles = [sx.cluster(x[f], obst[f], cfg.clustering, cfg.pipeline)
+                   for f in range(N_FRAMES)]
+        res, launches, calls = drive_spatial(stream, obst)
+        log(f"parallel path launches (counts set to 0 before, read after): "
+            f"{launches}")
+        check_spatial(stream, res, singles, batch8)
+        check_spatial_kernels(calls)
+        spatial_host_syncs(stream, obst)
+        time_spatial(stream, obst, smi)
+        out = scaling_bench.main([])
+        if set(out["data"]) != {1, 2, 4, 8} or "mesh_2d" not in out:
+            raise AssertionError(f"scaling_bench: {out}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main() -> None:
     device, smi = check_device()
     with phase("build"):
@@ -1630,6 +1954,8 @@ def main() -> None:
             check_host_stage(Path(tmp), stream, route, native_s, smi)
         with phase("cellgraph and single-device ops"):
             run_cellgraph_phase(Path(tmp), device, results, smi)
+        with phase("sharded and spatial"):
+            spatial_launches = run_spatial_phase(stream, smi)
     with phase("step kernels"):
         log_step_kernels(stream)
     with phase("kernels vs twins"):
@@ -1647,9 +1973,13 @@ def main() -> None:
         raise AssertionError("the port imported jax")
 
     import torch
-    # union_find's row: the main path's launches and the hybrid path's
+    # rows 1-2: the main path's launches and the parallel path's;
+    # union_find's also the hybrid path's
     counts = {**launches, **probe_launches,
-              "union_find": launches["union_find"] + hybrid_launches}
+              "tier_min_d2": launches["tier_min_d2"]
+              + spatial_launches["tier_min_d2"],
+              "union_find": launches["union_find"] + hybrid_launches
+              + spatial_launches["union_find"]}
     record = {"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": counts[k["name"]],

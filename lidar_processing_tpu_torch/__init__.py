@@ -6,8 +6,10 @@ payload and host chi-shape outlines — with PyTorch on one GPU, one frame
 or a batch of B frames a step (``device_frame_step_batched``). The two
 Pallas TPU kernels of that path (block min-distance and union-find) are
 hand-written CUDA C++ for sm_90a (csrc/); every other step is plain
-PyTorch. ``lidar_processing_tpu`` stays the reference the port is held
-against; this package never imports jax.
+PyTorch. ``parallel/`` shards frames and x-bands over the ranks of a
+``torch.distributed`` process group, bit-identical to one device.
+``lidar_processing_tpu`` stays the reference the port is held against;
+this package never imports jax.
 """
 
 import torch

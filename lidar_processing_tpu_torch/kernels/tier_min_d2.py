@@ -100,13 +100,24 @@ def tier_windows(sp_xyz, slices, tiers):
 def tier_min_d2_ref(sp_xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers
                     ) -> torch.Tensor:
     """Plain twin: min_d2_planar_ref over each tier's windows (every
-    frame's slots as rows of one call), the tiers' results concatenated."""
-    wins = tier_windows(sp_xyz, tier_slices(s_usuc, s_vsvc, starts,
-                                            n_in_tier, tiers), tiers)
-    return torch.cat([
-        min_d2_planar_ref(*(w.reshape(-1, w.shape[-1]) for w in pu + pv)
-                          ).reshape(pu[0].shape[:-1])
-        for pu, pv in wins], dim=-1)
+    frame's slots as rows of one call), the tiers' results concatenated.
+    A slot with no point on either side (every slot past n_in_tier) holds
+    only fill lanes, so its d² is the fills' d², computed once; only the
+    other rows go through min_d2_planar_ref (selecting them syncs)."""
+    slices = tier_slices(s_usuc, s_vsvc, starts, n_in_tier, tiers)
+    fills = (F_BIG,) * 3 + (-F_BIG,) * 3
+    empty = min_d2_planar_ref(*(torch.full((1, 1), f, dtype=torch.float32,
+                                           device=sp_xyz.device)
+                                for f in fills))
+    out = []
+    for (_, uc, _, vc), (pu, pv) in zip(slices,
+                                        tier_windows(sp_xyz, slices, tiers)):
+        live = ((uc != 0) | (vc != 0)).flatten().nonzero()[:, 0]
+        d2 = empty.expand(uc.numel()).clone()
+        d2[live] = min_d2_planar_ref(*(w.reshape(-1, w.shape[-1])[live]
+                                       for w in pu + pv))
+        out.append(d2.reshape(uc.shape))
+    return torch.cat(out, dim=-1)
 
 
 def tier_min_d2(sp_xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers

@@ -331,3 +331,95 @@ def test_cellgraph_step_on_card_matches_cpu(cuda, seed):
     if torch.equal(gpu_seg, cpu_seg):
         pay_gpu = device_frame_step_packed(x.to(cuda), m.to(cuda), cfg).cpu()
         assert torch.equal(pay_gpu, device_frame_step_packed(x, m, cfg))
+
+
+def test_cluster_spatial_on_card_matches_single_device(cuda):
+    """cluster_spatial on 8 x-band shards on the card (one rank, no
+    process group; the mesh's default device): its 8 bands in one batched
+    stixel run (two tier_min_d2 launches, one union_find), labels equal
+    to stixel.cluster on the card and to the same call on the CPU, bit
+    for bit."""
+    from lidar_processing_tpu_torch.config import SpatialConfig
+    from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
+    from lidar_processing_tpu_torch.parallel.mesh import make_mesh
+    from lidar_processing_tpu_torch.parallel.spatial import cluster_spatial
+    scfg = SpatialConfig(block_points=2048, block_clusters=512,
+                         halo_points=512, block_cells=2048,
+                         block_columns=1024, block_supernodes=1536,
+                         block_column_pairs=4096, block_sn_pairs=4096,
+                         block_live_edges=1024)
+    x, m = (torch.from_numpy(a) for a in pad_frame(
+        street_scene(0, "small")[0], CAP))
+    obst = m & (gpf_segment(x, m, CFG.segmentation).labels == SEG_OBSTACLE)
+    mesh = make_mesh(8, "space")
+    assert mesh.device.type == "cuda"
+    before = (ttm.tier_min_d2.launches, tuf.cc_labels.launches)
+    got = cluster_spatial(mesh, x, obst, CFG.clustering, CFG.pipeline, scfg)
+    assert (ttm.tier_min_d2.launches, tuf.cc_labels.launches) == (
+        before[0] + 2, before[1] + 1)
+    one = tsx.cluster(x.to(cuda), obst.to(cuda), CFG.clustering,
+                      CFG.pipeline)
+    on_cpu = cluster_spatial(make_mesh(8, "space", device="cpu"), x, obst,
+                             CFG.clustering, CFG.pipeline, scfg)
+    for g, w, c in zip(got, one, on_cpu):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        assert torch.equal(g.cpu(), c)
+    assert int(got.overflow) == 0 and int(got.num_clusters) > 0
+
+
+def test_four_nccl_ranks_equal_one_rank(cuda, tmp_path):
+    """The parallel entry points over 4 NCCL ranks, one a card (needs 4
+    GPUs): 8 x-band shards as 4 ranks x 2 on a small scene and on a
+    full-size one, the 2 x 4 mesh as 2 data x 2 space ranks x 2 shards,
+    sharded_batch_step of 4 frames, and the spatial step; every rank's
+    result equal to one rank holding every shard, bit for bit."""
+    from lidar_processing_tpu_torch.config import SpatialConfig
+    from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
+    from lidar_processing_tpu_torch.parallel import launch
+    from lidar_processing_tpu_torch.parallel.frame_spatial import \
+        device_frame_step_spatial
+    from lidar_processing_tpu_torch.parallel.sharded import \
+        sharded_batch_step
+    from lidar_processing_tpu_torch.parallel.spatial import (
+        cluster_spatial, cluster_spatial_2d)
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 GPUs: NCCL takes one rank a card")
+    scfg = SpatialConfig(block_points=2048, block_clusters=512,
+                         halo_points=512, block_cells=2048,
+                         block_columns=1024, block_supernodes=1536,
+                         block_column_pairs=4096, block_sn_pairs=4096,
+                         block_live_edges=1024)
+    small = CFG.replace(spatial=scfg)
+    sx_, sm_ = (np.stack(a) for a in zip(*(
+        pad_frame(street_scene(s, "small")[0], CAP) for s in range(4))))
+    full = DEFAULT_CONFIG
+    x, m = pad_frame(street_scene(0)[0], full.pipeline.max_points)
+    seg = gpf_segment(torch.from_numpy(x).to(cuda),
+                      torch.from_numpy(m).to(cuda), full.segmentation)
+    obst = m & (seg.labels == SEG_OBSTACLE).cpu().numpy()
+    cl = (full.clustering, full.pipeline, full.spatial)
+    calls = [
+        (cluster_spatial, {"space": 8}, (sx_[0], sm_[0], small.clustering,
+                                         small.pipeline, scfg)),
+        (cluster_spatial, {"space": 8}, (x, obst, *cl)),
+        (cluster_spatial_2d, {"data": 2, "space": 4},
+         (np.stack([x, x]), np.stack([obst, m & ~obst]), *cl)),
+        (sharded_batch_step, {"data": 4}, (sx_, sm_, small)),
+        (device_frame_step_spatial, {"space": 8}, (sx_[0], sm_[0], small)),
+    ]
+    ranks = launch.spawn(launch.run_entry_points, 4, "cuda", calls,
+                         rdzv_dir=tmp_path, backend="nccl", timeout_s=600)
+    want = launch.run_entry_points("cuda", calls)
+
+    def leaves(tree):
+        return ([leaf for t in tree for leaf in leaves(t)]
+                if isinstance(tree, tuple) else [tree])
+
+    for rank, got in enumerate(ranks):
+        for i, (g, w) in enumerate(zip(got, want)):
+            gl, wl = leaves(g), leaves(w)
+            assert len(gl) == len(wl)
+            for a, b in zip(gl, wl):
+                assert a.dtype == b.dtype and a.shape == b.shape, (rank, i)
+                assert a.tobytes() == b.tobytes(), (rank, i)
+    assert int(want[1][2]) == 0 and int(want[1][1]) > 300

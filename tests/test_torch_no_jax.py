@@ -2,7 +2,8 @@
 
 A subprocess blocks jax (``sys.modules["jax"] = None`` makes any
 ``import jax`` raise), imports every module of the port and runs the slice
-on a small CPU frame, on both clustering backends — as on the GPU
+on a small CPU frame, on both clustering backends, and the frame's
+obstacles through ``cluster_spatial`` on 2 x-band shards — as on the GPU
 machine, which has no jax.
 """
 
@@ -44,6 +45,21 @@ pay = device_frame_step_packed(torch.from_numpy(x), torch.from_numpy(m), cell)
 cell_out = host_outputs_packed(pay, cell, xyz.shape[0], with_outlines=False)
 assert cell_out.overflow == 0 and cell_out.num_clusters == out.num_clusters
 assert np.array_equal(cell_out.cluster_labels, out.cluster_labels)
+from lidar_processing_tpu_torch.config import SpatialConfig
+from lidar_processing_tpu_torch.ops.stixel import cluster
+from lidar_processing_tpu_torch.parallel.mesh import make_mesh
+from lidar_processing_tpu_torch.parallel.spatial import cluster_spatial
+obst = torch.zeros(4096, dtype=torch.bool)
+obst[:xyz.shape[0]] = torch.from_numpy(out.seg_labels == 2)
+scfg = SpatialConfig(block_points=4096, block_clusters=1024, halo_points=512,
+                     block_cells=2048, block_columns=1024,
+                     block_supernodes=2048, block_column_pairs=8192,
+                     block_sn_pairs=8192)
+sp = cluster_spatial(make_mesh(2, "space", device="cpu"), torch.from_numpy(x),
+                     obst, cfg.clustering, pcfg, scfg)
+one = cluster(torch.from_numpy(x), obst, cfg.clustering, pcfg)
+assert torch.equal(sp.labels, one.labels) and int(sp.overflow) == 0
+assert int(sp.num_clusters) == int(one.num_clusters) > 0
 assert sys.modules["jax"] is None
 assert not any(k.startswith(("jax.", "jaxlib", "lidar_processing_tpu."))
                for k in sys.modules)

@@ -1,7 +1,8 @@
 """PyTorch port: the cap and stage tools (``python -m
 lidar_processing_tpu_torch.tools.measure_caps | tier_hist |
 profile_stages``) run to their end on the CPU over small synthetic frames
-written as PCD files, each printing and returning its tables.
+written as PCD files, each printing and returning its tables; so does the
+scaling bench (``tools.scaling_bench``) on its own small frames.
 tests/test_torch_stixel.py holds their per-frame quantities against the
 JAX tools' computations."""
 
@@ -15,7 +16,7 @@ from lidar_processing_tpu_torch.config import DEFAULT_CONFIG
 from lidar_processing_tpu_torch.io.pcd import write_pcd_xyzi
 from lidar_processing_tpu_torch.io.synthetic import street_scene
 from lidar_processing_tpu_torch.tools import (measure_caps, profile_stages,
-                                              tier_hist)
+                                              scaling_bench, tier_hist)
 
 CFG = DEFAULT_CONFIG.replace(pipeline=dataclasses.replace(
     DEFAULT_CONFIG.pipeline, max_points=4096, max_obstacle_points=4096,
@@ -77,3 +78,23 @@ def test_profile_stages_main(frames, capsys):
         "_tiered_exact#2", "_build_supernodes", "_column_pairs", "cc_labels"]
     assert list(out["3_parts"]) == ["label_runs_presorted", "gather_runs",
                                     "convex_hulls_batched"]
+
+
+def test_scaling_bench_main_small_on_the_cpu(capsys):
+    """The data axis at 1, 2, 4 and 8 shards and the 2 x 4 mesh over 8
+    frames of 1024 points, one CPU rank: each timed, the layout printed
+    first; without --device it needs the card."""
+    out = scaling_bench.main(["--device", "cpu", "--max-points", "1024",
+                              "--reps", "1", "--frames-per-shard", "1"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("layout: 1 rank(s), process group backend "
+                               "none, cpu (host CPU)")
+    assert [line.split(" shards ")[0] for line in lines[1:5]] == [
+        f"data axis: 8 frames on {n}" for n in (1, 2, 4, 8)]
+    assert lines[5].startswith("2-D mesh (2 data x 4 space shards")
+    assert set(out["data"]) == {1, 2, 4, 8}
+    assert min(out["data"].values()) > 0
+    assert out["mesh_2d"] > 0 and out["layout"]["ranks"] == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            scaling_bench.main([])
