@@ -31,7 +31,7 @@ Phases (any failure raises, so the script never exits 0 after one):
      (counts set to 0 before each B and read after); ms per frame at each
      B (CUDA events around the batched calls, best of 3 passes) and the
      peak device memory of one step at each B; the B = 8 step's kernel
-     calls are recorded for phase 13;
+     calls are recorded for phase 14;
   8. host stage and entry points: frame 0's large-cluster outlines native
      vs the scipy chain (chamfer < 0.05 each), a broken native build
      raising instead of reaching scipy, host p50 and end to end of the 8
@@ -73,11 +73,19 @@ Phases (any failure raises, so the script never exits 0 after one):
      time and peak memory of cluster_spatial (4, 8 shards) beside
      stixel.cluster and of the spatial step beside device_frame_step; the
      scaling bench's main() on this one rank;
-  11. torch.profiler's count of CUDA kernels in one device step at B = 1
+  11. knife edge: tools/knife_cases.py's KNIFE rows and its crafted pair
+     per d² screen (cell gap and rep at k = 1, 2; supernode gap and the
+     four rep probes; the exact tests; the cellgraph's; the halo test)
+     through stixel ``cluster``, the cellgraph ``cluster`` (cell_capacity
+     128) and ``cluster_spatial`` at 2 bands, on the card and on the CPU:
+     labels CUDA == CPU bit for bit and every verdict the stored one (the
+     JAX package's on the CPU; the one stored exception is its bands' k = 1
+     cell rep screen, whose rounding XLA picks by the table's size);
+  12. torch.profiler's count of CUDA kernels in one device step at B = 1
      (at most 2995) and in one batched step at B = 8;
-  12. synthetic frame 0 at DEFAULT_CONFIG through cluster_debug, recording
+  13. synthetic frame 0 at DEFAULT_CONFIG through cluster_debug, recording
      the two tier_min_d2 calls of its step and its edge list;
-  13. kernels vs their plain PyTorch twins on the card, at the shapes the
+  14. kernels vs their plain PyTorch twins on the card, at the shapes the
      main path gives them: tier_min_d2 on frame 0's two calls and on
      crafted descriptor sets at both shipped tier tables (bit for bit,
      and equal to the old design, _stacked_windows + min_d2 per tier);
@@ -92,16 +100,23 @@ Phases (any failure raises, so the script never exits 0 after one):
      take (bound); then both main-path kernels' batched launches on
      frames 0-7's own calls (phase 7) against 8 single launches and the
      batched twins, bit for bit, timed;
-  14. probes: the kernels of the TPU probes in tools/ against their twins
+  15. probes: the kernels of the TPU probes in tools/ against their twins
      at the JAX probes' own sizes (union-find variants equal, pair minima
      <= 4 ULP, mosaic2 A and C equal, B within 1e-5 of the sum of |terms|),
-     timed the same way; frame 0's edge list through every union-find
+     timed the same way; mosaic2's redesigned A (gather_sum, one kernel a
+     call, both designs) and C (tile_scale) also equal to their first-port
+     versions (gather_sum_v0, tile_scale_v0) at ragged sizes, then v0,
+     new, the library call, new, v0 in turns, each with kernel ms (CUDA
+     events a call), device ms (torch.profiler), kernels a call and host
+     us a call (the host clock over 1000 calls, no synchronise in the
+     loop), and the launch path's host split; slice_sum beside
+     index_select + sum; frame 0's edge list through every union-find
      variant and the twin (all equal), and its small ambiguous supernode
      pairs through the pair kernel and through _stacked_windows +
      min_d2_planar (bit for bit), both timed; then the probe entry points
      (tools/probe_*.main) with the launch counts reset: every probe kernel
      must have run;
-  15. no jax imported.
+  16. no jax imported.
 
 Prints each phase's seconds, the kernels' JSON record, the card's name and
 power limit, and, as its last line, {"ok": true, "device": {...}}.
@@ -139,6 +154,7 @@ CELL_CAPACITY = 128        # the cellgraph phase's cell_capacity (shipped: 64)
 NB_QUERIES = 4096          # NeighborIndex queries on frame 0
 SPATIAL_SHARDS = (8, 4)    # x-band shards of the parallel phase
 SPATIAL_BLOCK_POINTS = 131072  # the spatial step's block_points (32768)
+HOST_CALLS = 1000          # calls a host-us measurement loops over
 
 
 def log(msg: str) -> None:
@@ -540,12 +556,10 @@ def check_probe_kernels(device) -> list:
     """Each probe kernel against its twin at the JAX probe's own sizes,
     with times; returns their records (launches are filled in later)."""
     import torch
-    from lidar_processing_tpu_torch.kernels import probe_mosaic2 as m2
     from lidar_processing_tpu_torch.kernels import probe_pairs as pp
     from lidar_processing_tpu_torch.kernels import probe_uf as puf
     from lidar_processing_tpu_torch.kernels.union_find import cc_labels_ref
     from lidar_processing_tpu_torch.tools import (probe_mosaic,
-                                                  probe_mosaic2,
                                                   probe_mosaic3, probe_uf,
                                                   probe_uf2)
     to = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa
@@ -614,18 +628,200 @@ def check_probe_kernels(device) -> list:
             cuda_ms(lambda: torch.cdist(u, v, compute_mode=CDIST).amin(
                 (1, 2))))
 
-    # tools/probe_mosaic2.py A, B, C at its size (16384)
+    records += check_mosaic2(device)
+    return records
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds a call: the host clock over `calls` calls with no
+    synchronise in the loop (one after it, outside the time)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def warm_ms(fn, calls: int = HOST_CALLS) -> float:
+    """ms a call in a warm back-to-back run: CUDA events around `calls`
+    calls (cuda_ms times one call from an idle card and a cold host)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def kernels_per_call(fn, reps: int = 5, tries: int = 5) -> dict:
+    """{kernel name: launches a call} of fn(), as torch.profiler records
+    them (device work only): the most of `tries` profiles of `reps` calls
+    each, since a profile late in a long process can drop a share of its
+    events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    most = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                most[e.key] = max(most.get(e.key, 0.0), e.count / reps)
+    return most
+
+
+def launch_split(idx, val, x) -> str:
+    """Host microseconds of each step of _build.launch's path, and of
+    launch_v0's steps it dropped, over HOST_CALLS calls each."""
+    import torch
+    from lidar_processing_tpu_torch.kernels import _build
+    dev = x.device
+    out = torch.empty((x.shape[0] // 128, 128), dtype=torch.float32,
+                      device=dev)
+    ptr, optr, n = x.data_ptr(), out.data_ptr(), x.shape[0]
+    c_fn = _build._BOUND["tile_scale_launch"]
+    stream = torch._C._cuda_getCurrentRawStream
+    v0_fn = _build.library().tile_scale_launch
+
+    def guard():
+        with torch.cuda.device(dev):
+            pass
+    steps = {
+        "checks (tile_scale)": lambda: (
+            x.shape[0] % 128, x.is_cuda,
+            _build.checked("tile_scale", ("x", x, torch.float32, 1)),
+            x.data_ptr() % 16),
+        "checks (gather_sum)": lambda: (
+            idx.is_cuda, _build.checked(
+                "gather_sum", ("idx", idx, torch.int32, 1),
+                ("val", val, torch.int32, 1)), val.shape[0],
+            idx.data_ptr() % 16),
+        "allocation (v0: torch.empty)": lambda: torch.empty(
+            (n // 128, 128), dtype=torch.float32, device=dev),
+        "allocation (now: new_empty)": lambda: x.new_empty((n // 128, 128)),
+        "current device": torch._C._cuda_getDevice,
+        "stream read": lambda: stream(0),
+        "ctypes call, GIL kept (a launch)": lambda: c_fn(ptr, optr, n,
+                                                         stream(0)),
+        "v0: ctypes call, GIL released (a launch)": lambda: v0_fn(
+            ptr, optr, n, stream(0)),
+        "device guard (v0: every call; now: only off the current device)":
+            guard,
+        "v0: Stream object": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "v0: getattr on the CDLL": lambda: getattr(_build.library(),
+                                                   "tile_scale_launch"),
+    }
+    return ", ".join(f"{k} {host_us(f):.2f}" for k, f in steps.items())
+
+
+def check_mosaic2(device) -> list:
+    """tools/probe_mosaic2.py's A, B, C at the probe's size (16384): the
+    redesigned A and C against their twins and their first-port versions
+    (v0) bit for bit, at 16384 and at ragged sizes; then v0, new, the
+    library call, new, v0 in turns, each by CUDA events a call (kernel
+    ms), torch.profiler (device ms, kernels a call) and the host clock
+    (host us a call); the new launch path's split. Returns the records."""
+    import torch
+    from lidar_processing_tpu_torch.kernels import probe_mosaic2 as m2
+    from lidar_processing_tpu_torch.tools import probe_mosaic2
+    to = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa
     n = 16384
     idx, val = map(to, probe_mosaic2.scalar_loads_inputs(n))
-    got, want = m2.gather_sum(idx, val), m2.gather_sum_ref(idx, val)
-    if not torch.equal(got, want):
-        raise AssertionError("gather_sum differs from its twin")
+    x = to(probe_mosaic2.accum_store_inputs(n))
+    # bit for bit, the probe's size and ragged ones
+    for k in (n, n - 1, n - 3, 5, 0):
+        i_k = idx[:k].clone()
+        want = m2.gather_sum_ref(i_k, val)
+        for name, got in (("gather_sum", m2.gather_sum(i_k, val)),
+                          ("atomic", m2.gather_sum(i_k, val, "atomic")),
+                          ("gather_sum_v0", m2.gather_sum_v0(i_k, val))):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} at n={k}: {got} != {want}")
+    for k in (n, n + 128, 128):
+        x_k = torch.randn(k, device=device)
+        want = m2.tile_scale_ref(x_k)
+        for fn in (m2.tile_scale, m2.tile_scale_v0):
+            if not torch.equal(fn(x_k), want):
+                raise AssertionError(f"{fn.__name__} at n={k} differs")
+    log(f"mosaic2: gather_sum (both designs) and tile_scale == their twins "
+        f"and v0s at n = {n} and ragged sizes")
+    seen = kernels_per_call(lambda: m2.gather_sum(idx, val))
+    if list(seen.values()) != [1.0]:
+        raise AssertionError(f"gather_sum: not one kernel a call: {seen}")
+    log(f"gather_sum: one kernel a call ({next(iter(seen))})")
     idx_l = idx.long()
-    add("gather_sum", "probe_mosaic2.cu", "tools/probe_mosaic2.py:38", 0,
-        lambda: m2.gather_sum(idx, val),
-        cuda_ms(lambda: m2.gather_sum_ref(idx, val)),
-        bound(4 * (idx.numel() + val.numel()) + 4),
-        cuda_ms(lambda: torch.take(val, idx_l).sum()))
+    calls = {
+        "gather_sum": (lambda: m2.gather_sum(idx, val),
+                       lambda: m2.gather_sum_v0(idx, val),
+                       lambda: torch.take(val, idx_l).sum()),
+        "tile_scale": (lambda: m2.tile_scale(x),
+                       lambda: m2.tile_scale_v0(x),
+                       lambda: torch.mul(x, 2.0))}
+    timed = {}
+    for name, (new, v0, lib) in calls.items():
+        turns = [("v0", v0), ("new", new), ("library", lib), ("new", new),
+                 ("v0", v0)]
+        t = {}
+        for who, fn in turns:
+            t.setdefault(who, []).append(
+                (cuda_ms(fn), device_ms(fn), host_us(fn), warm_ms(fn)))
+        timed[name] = {who: tuple(
+            None if None in v else statistics.mean(v) for v in zip(*rows))
+            for who, rows in t.items()}
+        kpc = {who: sum(kernels_per_call(fn).values()) for who, fn in
+               (("new", new), ("v0", v0), ("library", lib))}
+        log(f"{name} in turns (v0, new, library, new, v0; kernel ms, "
+            f"device ms, host us, warm ms a call): " + "; ".join(
+                f"{who} " + " / ".join(
+                    f"{a:.4f}, {fmt_ms(b)}, {c:.2f}, {d:.4f}"
+                    for a, b, c, d in rows)
+                for who, rows in t.items()) + f"; kernels a call {kpc}")
+    atomic = lambda: m2.gather_sum(idx, val, "atomic")  # noqa: E731
+    log(f"gather_sum designs: cluster kernel "
+        f"{timed['gather_sum']['new'][0]:.4f} ms, device "
+        f"{fmt_ms(timed['gather_sum']['new'][1])}; atomic kernel "
+        f"{cuda_ms(atomic):.4f} ms, device {fmt_ms(device_ms(atomic))}, "
+        f"host {host_us(atomic):.2f} us")
+    log(f"launch path, host us a call: {launch_split(idx, val, x)}")
+
+    records = []
+    for name, src_line, ref, b in (
+            ("gather_sum", "tools/probe_mosaic2.py:38",
+             lambda: m2.gather_sum_ref(idx, val),
+             bound(4 * (idx.numel() + val.numel()) + 4)),
+            ("tile_scale", "tools/probe_mosaic2.py:83",
+             lambda: m2.tile_scale_ref(x), bound(8 * n))):
+        plain = cuda_ms(ref)
+        for who, rec in (("new", name), ("v0", f"{name}_v0")):
+            ms, dev_ms, h_us, w_ms = timed[name][who]
+            records.append({
+                "name": rec, "source": f"{CSRC}/probe_mosaic2.cu",
+                "replaces": src_line, "max_abs_err": 0, "ms": ms,
+                "plain_ms": plain, **b,
+                "library_ms": timed[name]["library"][0]})
+            log(f"{rec}: kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}, host "
+                f"{h_us:.2f} us, warm {w_ms:.4f} ms), plain {plain:.4f} ms, "
+                f"library "
+                f"{timed[name]['library'][0]:.4f} ms (device "
+                f"{fmt_ms(timed[name]['library'][1])}, host "
+                f"{timed[name]['library'][2]:.2f} us, warm "
+                f"{timed[name]['library'][3]:.4f} ms), bound "
+                f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
+
     off_np, planes_np = probe_mosaic2.dyn_slice_inputs(n)
     off, planes = to(off_np), to(planes_np)
     got = float(m2.slice_sum(off, planes))
@@ -633,19 +829,96 @@ def check_probe_kernels(device) -> list:
     tol = 1e-5 * np.abs(probe_mosaic2.slice_terms(off_np, planes_np)).sum()
     if abs(got - want) > tol:
         raise AssertionError(f"slice_sum {got} vs twin {want} (tol {tol})")
-    add("slice_sum", "probe_mosaic2.cu", "tools/probe_mosaic2.py:60",
-        abs(got - want), lambda: m2.slice_sum(off, planes),
-        cuda_ms(lambda: m2.slice_sum_ref(off, planes)),
-        bound(4 * (off.numel() + planes.numel()) + 4,
-              2 * planes.shape[1] * n), None)
-    x = to(probe_mosaic2.accum_store_inputs(n))
-    if not torch.equal(m2.tile_scale(x), m2.tile_scale_ref(x)):
-        raise AssertionError("tile_scale differs from its twin")
-    add("tile_scale", "probe_mosaic2.cu", "tools/probe_mosaic2.py:83", 0.0,
-        lambda: m2.tile_scale(x),
-        cuda_ms(lambda: m2.tile_scale_ref(x)), bound(8 * n),
-        cuda_ms(lambda: torch.mul(x, 2.0)))
+    # the library yardstick's row indices, made before timing
+    rows = (torch.clamp(off, 0, planes.shape[0] - 2).long()[:, None]
+            + torch.arange(2, device=device)).reshape(-1)
+    ms, plain = cuda_ms(lambda: m2.slice_sum(off, planes)), cuda_ms(
+        lambda: m2.slice_sum_ref(off, planes))
+    lib = cuda_ms(lambda: planes.index_select(0, rows).sum())
+    b = bound(4 * (off.numel() + planes.numel()) + 4,
+              2 * planes.shape[1] * n)
+    records.append({"name": "slice_sum",
+                    "source": f"{CSRC}/probe_mosaic2.cu",
+                    "replaces": "tools/probe_mosaic2.py:60",
+                    "max_abs_err": abs(got - want), "ms": ms,
+                    "plain_ms": plain, **b, "library_ms": lib})
+    log(f"slice_sum: kernel {ms:.4f} ms (device "
+        f"{fmt_ms(device_ms(lambda: m2.slice_sum(off, planes)))}, host "
+        f"{host_us(lambda: m2.slice_sum(off, planes)):.2f} us), plain "
+        f"{plain:.4f} ms, library index_select+sum {lib:.4f} ms, bound "
+        f"{b['bound_ms']:.6f} ms ({b['bound_by']}), max abs err "
+        f"{abs(got - want)}")
     return records
+
+
+def knife_config(backend: str = "stixel"):
+    """tools/knife_cases.py's caps; the cellgraph at cell_capacity
+    CELL_CAPACITY with its ambiguous-pair slots cut to the cloud (its
+    d² rounding does not follow the caps)."""
+    import dataclasses
+    from lidar_processing_tpu_torch.config import DEFAULT_CONFIG
+    from lidar_processing_tpu_torch.tools import knife_cases as kc
+    pcfg = kc.PIPELINE
+    if backend == "cellgraph":
+        pcfg = dataclasses.replace(pcfg, clustering_backend="cellgraph",
+                                   cell_capacity=CELL_CAPACITY,
+                                   max_ambiguous_pairs=4096)
+    return DEFAULT_CONFIG.replace(pipeline=pcfg, spatial=kc.SPATIAL)
+
+
+def check_knife(device) -> None:
+    """The crafted knife-edge pairs (tools/knife_cases.py: the KNIFE rows
+    and one pair per d² screen) through the port on the card and on the
+    CPU: stixel ``cluster``, the cellgraph ``cluster`` and
+    ``cluster_spatial`` at 2 bands. Labels CUDA == CPU bit for bit, and
+    every verdict the stored one (the JAX package's on the CPU, but for
+    the bands' k = 1 cell rep screen, whose rounding XLA picks by shape)."""
+    import torch
+    from lidar_processing_tpu_torch.io.synthetic import pad_frame
+    from lidar_processing_tpu_torch.ops import clustering as tcl
+    from lidar_processing_tpu_torch.ops import stixel as sx
+    from lidar_processing_tpu_torch.parallel.sharded import make_mesh
+    from lidar_processing_tpu_torch.parallel.spatial import cluster_spatial
+    from lidar_processing_tpu_torch.tools import knife_cases as kc
+    cfg, cg = knife_config(), knife_config("cellgraph")
+    paths = {
+        "stixel": lambda x, m: sx.cluster(x, m, cfg.clustering,
+                                          cfg.pipeline),
+        "cellgraph": lambda x, m: tcl.cluster(x, m, cg.clustering,
+                                              cg.pipeline),
+        "bands": lambda x, m: cluster_spatial(
+            make_mesh(2, "space", device=x.device), x, m, cfg.clustering,
+            cfg.pipeline, cfg.spatial)}
+    xyz, cases = kc.screen_cloud()
+    clouds = {"screens": pad_frame(xyz, cfg.pipeline.max_points),
+              "KNIFE": pad_frame(kc.knife_rows(), cfg.pipeline.max_points)}
+    for cloud, (x, m) in clouds.items():
+        tx, tm = torch.from_numpy(x), torch.from_numpy(m)
+        for path, fn in paths.items():
+            if cloud == "KNIFE" and path == "cellgraph":
+                continue
+            got = fn(tx.to(device), tm.to(device))
+            want = fn(tx, tm)
+            for f in ("labels", "num_clusters", "overflow"):
+                if not torch.equal(getattr(got, f).cpu(), getattr(want, f)):
+                    raise AssertionError(f"knife {cloud} {path}: {f} CUDA "
+                                         f"!= CPU")
+            if int(got.overflow):
+                raise AssertionError(f"knife {cloud} {path}: overflow")
+            lab = got.labels.cpu().numpy()
+            if cloud == "KNIFE":
+                if kc.knife_linked(lab) != (True, True, False, False):
+                    raise AssertionError(f"KNIFE {path}: "
+                                         f"{kc.knife_linked(lab)}")
+                continue
+            col = kc.PATHS.index(path)
+            for screen, case in cases.items():
+                if kc.linked(lab, case) != kc.PORT_LINKED[screen][col]:
+                    raise AssertionError(f"knife {screen} on {path}: "
+                                         f"{kc.linked(lab, case)}")
+    log(f"knife edge: KNIFE rows and {len(cases)} screens' pairs, CUDA == "
+        f"CPU bit for bit on stixel, cellgraph (cell_capacity "
+        f"{CELL_CAPACITY}) and 2 bands; verdicts as stored")
 
 
 def frame0_debug(device):
@@ -762,7 +1035,7 @@ def check_real_frame(device, res, dbg):
 
 PROBE_KERNELS = ("uf_probe", "uf_serial", "uf_packed", "uf_packed_noskip",
                  "pair_min_d2_v48", "pair_min_d2_v96", "gather_sum",
-                 "slice_sum", "tile_scale")
+                 "gather_sum_v0", "slice_sum", "tile_scale", "tile_scale_v0")
 
 
 def run_probe_path(device, edges) -> dict:
@@ -777,8 +1050,8 @@ def run_probe_path(device, edges) -> dict:
                                                   probe_uf2)
     wrappers = {w.__name__: w for w in (
         puf.uf_probe, puf.uf_serial, puf.uf_packed, puf.uf_packed_noskip,
-        pp.pair_min_d2_v48, pp.pair_min_d2_v96, m2.gather_sum, m2.slice_sum,
-        m2.tile_scale)}
+        pp.pair_min_d2_v48, pp.pair_min_d2_v96, m2.gather_sum,
+        m2.gather_sum_v0, m2.slice_sum, m2.tile_scale, m2.tile_scale_v0)}
     for w in wrappers.values():
         w.launches = 0
     probe_uf.main(device)
@@ -1956,6 +2229,8 @@ def main() -> None:
             run_cellgraph_phase(Path(tmp), device, results, smi)
         with phase("sharded and spatial"):
             spatial_launches = run_spatial_phase(stream, smi)
+    with phase("knife edge"):
+        check_knife(device)
     with phase("step kernels"):
         log_step_kernels(stream)
     with phase("kernels vs twins"):

@@ -19,11 +19,11 @@
 // go back to device memory, as the TPU kernel kept its whole distance
 // block in VMEM and wrote only the (B, 1) min.
 //
-// Operation order matches the JAX kernel and the PyTorch twin
-// (kernels/min_d2.py::min_d2_planar_ref) op for op: d*d for x, then + y's,
-// then + z's. The __f*_rn intrinsics keep nvcc from contracting the
-// multiply-adds into FMAs, so the kernel is bit-identical to an
-// unfused float32 evaluation.
+// Rounding matches the JAX kernel as XLA compiles it on the CPU (jit or
+// Pallas interpret mode) and the PyTorch twin
+// (kernels/min_d2.py::min_d2_planar_ref): d2 = fma(dz, dz, fma(dx, dx,
+// dy*dy)). The explicit __fmaf_rn / __fmul_rn intrinsics fix it, so
+// nvcc's -fmad default decides nothing.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,12 +68,10 @@ min_d2_kernel(const float* __restrict__ ux, const float* __restrict__ uy,
   int j = tid - i * wv;
   float best = INFINITY;
   for (int k = tid; k < n; k += kThreads) {
-    float d = __fsub_rn(sux[i], svx[j]);
-    float d2 = __fmul_rn(d, d);
-    d = __fsub_rn(suy[i], svy[j]);
-    d2 = __fadd_rn(d2, __fmul_rn(d, d));
-    d = __fsub_rn(suz[i], svz[j]);
-    d2 = __fadd_rn(d2, __fmul_rn(d, d));
+    const float dx = __fsub_rn(sux[i], svx[j]);
+    const float dy = __fsub_rn(suy[i], svy[j]);
+    const float dz = __fsub_rn(suz[i], svz[j]);
+    const float d2 = __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
     best = fminf(best, d2);
     i += di;
     j += dj;

@@ -22,8 +22,8 @@
 // the warp one at a time); each lane holds v_j for j = lane + 32k, keeps a
 // running min in a register, and the warp reduces by shuffles. The TPU's
 // (8, 128) stacking, its roll realignment and its one-hot matmul have no
-// counterpart. The unfused __fsub_rn/__fmul_rn/__fadd_rn order of
-// csrc/min_d2.cu makes it bit-identical to the twin.
+// counterpart. d2 = fma(dz, dz, fma(dx, dx, dy*dy)) in explicit
+// intrinsics, as csrc/min_d2.cu, makes it bit-identical to the twin.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,13 +76,11 @@ pair_min_d2_kernel(const float* __restrict__ x, const float* __restrict__ y,
 #pragma unroll
     for (int k = 0; k < kPerLane; ++k) {
       if (lane + 32 * k >= kV) break;  // lanes past the window cap
-      float d = __fsub_rn(ax, vx[k]);
-      float d2 = __fmul_rn(d, d);
-      d = __fsub_rn(ay, vy[k]);
-      d2 = __fadd_rn(d2, __fmul_rn(d, d));
-      d = __fsub_rn(az, vz[k]);
-      d2 = __fadd_rn(d2, __fmul_rn(d, d));
-      best = fminf(best, d2);
+      const float dx = __fsub_rn(ax, vx[k]);
+      const float dy = __fsub_rn(ay, vy[k]);
+      const float dz = __fsub_rn(az, vz[k]);
+      best = fminf(best, __fmaf_rn(dz, dz,
+                                   __fmaf_rn(dx, dx, __fmul_rn(dy, dy))));
     }
   }
   for (int off = 16; off > 0; off >>= 1)

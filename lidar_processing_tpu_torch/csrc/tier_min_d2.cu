@@ -18,9 +18,11 @@
 // real pair beats any pair with a fill, and all fill lanes are equal. A
 // point index q beyond the buffer reads what the windows' clamped row
 // gather reads: row min(max(q / sr, 0), n / sr - 1), lane q mod sr, with
-// sr = 8 points a row on u and 32 on v. d2 is unfused, x then + y then + z,
-// with __f*_rn as in csrc/min_d2.cu, so every slot, inactive ones
-// included, is bit-identical to the PyTorch twin
+// sr = 8 points a row on u and 32 on v. d2 = fma(dz, dz, fma(dx, dx,
+// dy*dy)) in explicit intrinsics, as in csrc/min_d2.cu: the rounding of
+// the JAX package's exact test inside its jitted `cluster` on the CPU
+// (found by crafted knife-edge pairs, tools/knife_cases.py). So every
+// slot, inactive ones included, is bit-identical to the PyTorch twin
 // (kernels/tier_min_d2.py::tier_min_d2_ref).
 //
 // What bounds it on an H100: a frame's active pairs touch ~12 B per point
@@ -74,12 +76,10 @@ struct TierTable {
 
 __device__ __forceinline__ float dist2(float ax, float ay, float az,
                                        float bx, float by, float bz) {
-  float d = __fsub_rn(ax, bx);
-  float s = __fmul_rn(d, d);
-  d = __fsub_rn(ay, by);
-  s = __fadd_rn(s, __fmul_rn(d, d));
-  d = __fsub_rn(az, bz);
-  return __fadd_rn(s, __fmul_rn(d, d));
+  const float dx = __fsub_rn(ax, bx);
+  const float dy = __fsub_rn(ay, by);
+  const float dz = __fsub_rn(az, bz);
+  return __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
 }
 
 // Point q of the (n, 3) buffer as a window row gather of 2^kShift points

@@ -45,10 +45,14 @@ _ENTRIES = (
     ("uf_packed_noskip_launch", [_P] * 3 + [_I, _I, _P]),
     ("pair_min_d2_v48_launch", [_P] * 3 + [_I] + [_P] * 5 + [_I, _P]),
     ("pair_min_d2_v96_launch", [_P] * 3 + [_I] + [_P] * 5 + [_I, _P]),
-    ("gather_sum_launch", [_P, _P, _I, _I, _P, _P, _P]),
+    ("gather_sum_launch", [_P, _P, _I, _I, _P, _I, _P]),
+    ("gather_sum_v0_launch", [_P, _P, _I, _I, _P, _P, _P]),
     ("slice_sum_launch", [_P, _P, _I, _I, _I, _P, _P, _P]),
     ("tile_scale_launch", [_P, _P, _I, _P]),
+    ("tile_scale_v0_launch", [_P, _P, _I, _P]),
 )
+# each entry point's ctypes function, bound once by library()
+_BOUND: dict = {}
 
 
 class BuildInfo(NamedTuple):
@@ -126,24 +130,34 @@ def build() -> BuildInfo:
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    lib = ctypes.CDLL(str(build().path))
-    for name, argtypes in _ENTRIES:
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    """The loaded kernel library, built first if needed; binds every entry
+    point's ctypes function (argtypes, restype) once, for launch(), through
+    a PyDLL handle of the same library: its calls keep the GIL, as a call
+    that only enqueues a kernel and returns need not release it."""
+    path = str(build().path)
+    lib = ctypes.CDLL(path)
+    for handle, bound in ((lib, None), (ctypes.PyDLL(path), _BOUND)):
+        for name, argtypes in _ENTRIES:
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            if bound is not None:
+                bound[name] = fn
     return lib
 
 
 def checked(name: str, *specs) -> torch.device:
     """Check (what, tensor, dtype, dim) specs — all on the first one's
-    device, contiguous, of that dtype and rank — and return the device."""
-    dev = specs[0][1].device
+    device, contiguous, of that dtype and rank — and return the device.
+    Each tensor's attributes are read once."""
+    dev = None
     for what, t, dtype, dim in specs:
-        if t.dtype != dtype or t.device != dev or t.dim() != dim:
+        t_dtype, t_dev, t_dim = t.dtype, t.device, t.dim()
+        if dev is None:
+            dev = t_dev
+        if t_dtype != dtype or t_dev != dev or t_dim != dim:
             raise ValueError(f"{name}: {what} must be {dim}-D {dtype} on "
-                             f"{dev}, got {t.dim()}-D {t.dtype} on "
-                             f"{t.device}")
+                             f"{dev}, got {t_dim}-D {t_dtype} on {t_dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
     return dev
@@ -152,7 +166,33 @@ def checked(name: str, *specs) -> torch.device:
 def launch(fn, entry: str, device, *args) -> None:
     """Call C entry point `entry` with `args` (ints: pointers from
     data_ptr() and sizes) and the device's current stream; raise on a
-    nonzero cudaError_t, else count the launch on the wrapper `fn`."""
+    nonzero cudaError_t, else count the launch on the wrapper `fn`.
+
+    The host's share of a call, cut to: a dict lookup of the bound ctypes
+    function, the current device and the device's raw stream as ints (no
+    Stream object; what PyTorch's own Triton launcher reads; CUDA builds
+    of torch only), a device guard only when the tensor's device is not
+    the current one, and the ctypes call (GIL kept)."""
+    if not _BOUND:
+        library()
+    c_fn = _BOUND[entry]
+    index = device.index
+    if torch._C._cuda_getDevice() == index:
+        rc = c_fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = c_fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {rc} at launch")
+    fn.launches += 1
+
+
+def launch_v0(fn, entry: str, device, *args) -> None:
+    """The first port's launch path, kept for the v0 probes
+    (kernels/probe_mosaic2.py) so that one process can time both: a
+    device guard every call, a Stream object built to read its
+    ``cuda_stream``, and a getattr on the CDLL (whose calls release and
+    retake the GIL)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(library(), entry)(*args, stream)

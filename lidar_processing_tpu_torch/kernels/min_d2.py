@@ -6,9 +6,13 @@ and v (P, Wv), given as planar x/y/z coordinate planes, compute
 min over (i, j) of ||u_i - v_j||^2. On a CUDA tensor ``min_d2_planar``
 launches the hand-written Hopper kernel (csrc/min_d2.cu); on a CPU tensor
 it runs the plain PyTorch twin ``min_d2_planar_ref``. Both evaluate
-d² = dx² + dy² + dz² unfused in that order, so they agree bit for bit;
-the JAX package's own tolerance (<= 4 ULP) exists only for FMA
-contraction on its side.
+d² = fma(dz, dz, fma(dx, dx, dy·dy)), so they agree bit for bit. That is
+how the JAX package's d² rounds under ``jax.jit`` on the CPU (its
+``cluster``, a jitted ``min_d2_planar_xla``, the Pallas kernel in
+interpret mode): XLA contracts its chain d2 = dx², + dy², + dz² into two
+fused multiply-adds. Run eagerly, op by op, ``min_d2_planar_xla`` rounds
+every product and sum on its own; the JAX package's tolerance (<= 4 ULP)
+covers that.
 """
 
 from __future__ import annotations
@@ -23,21 +27,22 @@ _REF_BLOCK_ELEMS = 16 * 1024 * 1024
 
 def min_d2_planar_ref(ux, uy, uz, vx, vy, vz) -> torch.Tensor:
     """Plain PyTorch twin: the broadcast formulation of the JAX package's
-    ``min_d2_planar_xla``, chunked over P to bound the (P, Wu, Wv)
-    temporaries. Same op order as the kernel (in place, two temporaries
-    per chunk)."""
+    ``min_d2_planar_xla`` as jit compiles it, chunked over P to bound the
+    (P, Wu, Wv) temporaries. Same rounding as the kernel, fma(dz, dz,
+    fma(dx, dx, dy·dy)) (``addcmul_``, in place, two temporaries per
+    chunk)."""
     p, wu = ux.shape
     wv = vx.shape[1]
     chunk = max(1, _REF_BLOCK_ELEMS // max(wu * wv, 1))
     out = torch.empty((p,), dtype=torch.float32, device=ux.device)
     for lo in range(0, p, chunk):
         sl = slice(lo, lo + chunk)
-        d2 = ux[sl, :, None] - vx[sl, None, :]
+        d2 = uy[sl, :, None] - vy[sl, None, :]
         d2.mul_(d2)
-        d = uy[sl, :, None] - vy[sl, None, :]
-        d2.add_(d.mul_(d))
+        d = ux[sl, :, None] - vx[sl, None, :]
+        d2.addcmul_(d, d)
         torch.sub(uz[sl, :, None], vz[sl, None, :], out=d)
-        d2.add_(d.mul_(d))
+        d2.addcmul_(d, d)
         out[sl] = d2.flatten(1).amin(dim=1)
     return out
 

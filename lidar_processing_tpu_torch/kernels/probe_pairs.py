@@ -8,8 +8,8 @@ with u runs capped at 8 points and v runs at 48 or 96. On CUDA tensors
 warp per pair, no window tensor) and count the launch; on CPU tensors they
 run the twin ``pair_min_d2_ref``: the windows gathered with the ±1e9
 fills ``kernels/tier_min_d2.py::_stacked_windows`` uses, then
-``min_d2_planar_ref``. Both evaluate d² unfused as dx², + dy², + dz², so
-they agree bit for bit.
+``min_d2_planar_ref``. Both evaluate d² as fma(dz, dz, fma(dx, dx,
+dy·dy)), so they agree bit for bit.
 
 ``mosaic_pairs`` and ``mosaic3_pairs`` take the JAX probes' own layouts
 ((n/8, 24) stacked rows, (n/128 + pad, 384) planar rows) and turn them into

@@ -17,10 +17,11 @@ for every tier of the table and every frame, reading the runs in place from
 the (B, NO, 3) point buffer, and counts it in ``tier_min_d2.launches``. On
 a CPU tensor it runs the twin ``tier_min_d2_ref``, the computation of the
 JAX package tier by tier: dynamic slices, unpacking, ``_stacked_windows``
-on both sides and ``min_d2_planar_ref``. Both evaluate d² unfused as dx²,
-+ dy², + dz², and the kernel counts an empty side as one ±1e9 fill point,
-as the windows' fill lanes are; so they agree bit for bit, inactive slots
-included.
+on both sides and ``min_d2_planar_ref``. Both evaluate d² as fma(dz, dz,
+fma(dx, dx, dy·dy)), the rounding of the JAX package's exact test inside
+its jitted ``cluster`` on the CPU, and the kernel counts an empty side as
+one ±1e9 fill point, as the windows' fill lanes are; so they agree bit
+for bit, inactive slots included.
 """
 
 from __future__ import annotations

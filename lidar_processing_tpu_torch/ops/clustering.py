@@ -40,7 +40,7 @@ from ..types import (CLUSTER_INVALID, CLUSTER_UNDEFINED, ClusteringResult,
                      frame_of)
 from .scan_utils import IMAX as _IMAX
 from .scan_utils import (compact_mask, scatter_drop, scatter_min_rows,
-                         set_drop, sort_by, take, take_rows)
+                         set_drop, sort_by, sum_sq3, take, take_rows)
 from .segmentation import _f32
 
 _I32 = torch.int32
@@ -143,21 +143,18 @@ def _classify_pairs(tbl: _CellTable, r2: float, max_cells: int):
               & slot_valid[..., None])
     pos = pos.reshape(nkey.shape)
 
-    # AABB-to-AABB gap (lower bound on the min pair distance), three
-    # squares summed in the JAX package's order
+    # AABB-to-AABB gap (lower bound on the min pair distance); both
+    # screens' d² round as the JAX package's on the CPU, fma(z, z, fma(y,
+    # y, x·x)) (found by crafted knife-edge pairs, tools/knife_cases.py)
     gap = torch.clamp(torch.maximum(
         tbl.aabb_min[:, :, None, :] - take_rows(tbl.aabb_max, pos),
         take_rows(tbl.aabb_min, pos) - tbl.aabb_max[:, :, None, :]), min=0.0)
-    impossible = _sum3(gap * gap) > r2
+    impossible = sum_sq3(*gap.unbind(-1)) > r2
     # first-point distance (upper bound on the min pair distance)
     dr = tbl.rep[:, :, None, :] - take_rows(tbl.rep, pos)
-    near = _sum3(dr * dr) <= r2
+    near = sum_sq3(*dr.unbind(-1)) <= r2
     possible = exists & ~impossible
     return pos, possible & near, possible & ~near
-
-
-def _sum3(v: torch.Tensor) -> torch.Tensor:
-    return v[..., 0] + v[..., 1] + v[..., 2]
 
 
 def _resolve_ambiguous(sp, tbl: _CellTable, pos, ambiguous, r2: float,
@@ -194,20 +191,8 @@ def _resolve_ambiguous(sp, tbl: _CellTable, pos, ambiguous, r2: float,
             real, sp[..., ax].gather(1, idx).reshape(real.shape), fill)
             for ax in range(3)])
 
-    pa = gather_block(a_cell, inf)
-    pb = gather_block(b_cell, -inf)
-    # min over all point pairs, a row of `a` at a time, so the transients
-    # are (B, A, cap) planes and never (B, A, cap, cap); d² is summed in
-    # the JAX package's order, each product and sum rounded on its own
-    mind2 = None
-    for k in range(cap):
-        d2 = None
-        for ax in range(3):
-            d = pa[ax, :, :, k, None] - pb[ax]
-            d.mul_(d)
-            d2 = d if d2 is None else d2.add_(d)
-        row = d2.amin(-1)
-        mind2 = row if mind2 is None else torch.minimum(mind2, row)
+    mind2 = _min_d2_rows(gather_block(a_cell, inf),
+                         gather_block(b_cell, -inf))
     amb_edge = amb_real & (mind2 <= r2)
 
     # capped-cell accounting: only a NEGATIVE verdict on a pair where a
@@ -220,6 +205,24 @@ def _resolve_ambiguous(sp, tbl: _CellTable, pos, ambiguous, r2: float,
     edge = set_drop(torch.zeros((frames, m * no), dtype=torch.bool,
                                 device=dev), amb_idx, amb_edge)
     return edge.reshape(frames, m, no), overflow
+
+
+def _min_d2_rows(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+    """(B, A) min d² over all point pairs of (3, B, A, cap) planes, a row
+    of `pa` at a time, so the transients are (B, A, cap) planes and never
+    (B, A, cap, cap). d² rounds as the JAX package's row scan (inside
+    lax.scan) on the CPU, fma(z, z, fma(y, y, x·x)), found by crafted
+    knife-edge pairs (tools/knife_cases.py)."""
+    mind2 = None
+    for k in range(pa.shape[-1]):
+        d2 = pa[0, ..., k, None] - pb[0]
+        d2.mul_(d2)
+        for ax in (1, 2):
+            d = pa[ax, ..., k, None] - pb[ax]
+            d2.addcmul_(d, d)
+        row = d2.amin(-1)
+        mind2 = row if mind2 is None else torch.minimum(mind2, row)
+    return mind2
 
 
 def _connected_components(nbr, edge, rounds: int = 64) -> torch.Tensor:

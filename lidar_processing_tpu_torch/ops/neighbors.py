@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..tools._common import resolve_device
+from .scan_utils import sum_sq3
 
 _I32 = torch.int32
 _F_INF = float("inf")
@@ -51,10 +52,9 @@ def _pairwise_d2(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """(Q, P) exact squared distances by direct difference (no ‖q‖² +
     ‖p‖² − 2q·p expansion: its cancellation would break distance ties
     differently). The squares accumulate as XLA compiles the JAX
-    package's ``jnp.sum(d * d, -1)``: dx² then two fused multiply-adds,
-    which ``addcmul`` computes."""
-    d = [queries[:, None, a] - points[None, :, a] for a in range(3)]
-    return torch.addcmul(torch.addcmul(d[0] * d[0], d[1], d[1]), d[2], d[2])
+    package's ``jnp.sum(d * d, -1)`` (``sum_sq3``)."""
+    return sum_sq3(*(queries[:, None, a] - points[None, :, a]
+                     for a in range(3)))
 
 
 def _valid(points: torch.Tensor, mask: Optional[torch.Tensor]):

@@ -1,4 +1,5 @@
-"""Sort and run primitives shared by the port's ops.
+"""Sort and run primitives shared by the port's ops, and the sum of three
+squares that every clustering distance screen shares (``sum_sq3``).
 
 Port of ``lidar_processing_tpu/ops/scan_utils.py`` plus the one sort
 helper every op uses in place of ``lax.sort``. All int results are int32,
@@ -22,6 +23,15 @@ from typing import Tuple, Union
 import torch
 
 IMAX = 2 ** 31 - 1
+
+
+def sum_sq3(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor
+            ) -> torch.Tensor:
+    """x² + y² + z² rounded as XLA's CPU compile rounds the JAX package's
+    ``jnp.sum(v * v, axis)`` over three components: x·x, then two fused
+    multiply-adds, fma(z, z, fma(y, y, x·x)). ``addcmul`` is that fused
+    multiply-add, on the CPU and on the card."""
+    return torch.addcmul(torch.addcmul(x * x, y, y), z, z)
 
 
 def sort_by(keys: Union[torch.Tensor, Tuple[torch.Tensor, ...]],

@@ -53,7 +53,7 @@ from ..types import (CLUSTER_INVALID, CLUSTER_UNDEFINED, ClusteringResult,
 from .scan_utils import IMAX as _IMAX
 from .scan_utils import (compact_mask, dynamic_slice, scatter_drop,
                          scatter_min_rows, seg_broadcast_first, set_drop,
-                         sort_by, take, take_rows)
+                         sort_by, sum_sq3, take, take_rows)
 
 _I32 = torch.int32
 _F_BIG = 1.0e9
@@ -91,11 +91,6 @@ def _iota(n: int, device) -> torch.Tensor:
 def _count(mask: torch.Tensor) -> torch.Tensor:
     """Each frame's count of True as a (B, 1) int32 column."""
     return mask.sum(-1, keepdim=True, dtype=_I32)
-
-
-def _sum3(v: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis of (..., 3) in XLA's order."""
-    return v[..., 0] + v[..., 1] + v[..., 2]
 
 
 def _shift(x: torch.Tensor, k: int, fill) -> torch.Tensor:
@@ -595,16 +590,22 @@ def cluster_fused(xyz_s, obstacle_s, point_valid_s, orig_s, seg_labels_s,
         sp.orig)
 
 
+# The screens' d² round as the JAX package's on the CPU does (found by
+# crafted knife-edge pairs through its jitted `cluster`, the shipped caps;
+# tools/knife_cases.py): the cell-pair and supernode-pair AABB gaps and rep
+# probes all as fma(z, z, fma(y, y, x·x)) (`sum_sq3`). At other caps XLA
+# picks other fusions for the k = 1 cell rep screen (unfused at max_cells
+# <= 16384, both rep screens at >= 32768; ROADMAP §3): the port keeps one
+# rounding. The exact test is kernels/tier_min_d2.py's.
 def _pair_gap_d2(u_aabb, v_aabb):
     gap = torch.clamp(torch.maximum(u_aabb[..., 0:3] - v_aabb[..., 3:6],
                                     v_aabb[..., 0:3] - u_aabb[..., 3:6]),
                       min=0.0)
-    return _sum3(gap * gap)
+    return sum_sq3(*gap.unbind(-1))
 
 
 def _d2(a, b):
-    d = a - b
-    return _sum3(d * d)
+    return sum_sq3(*(a - b).unbind(-1))
 
 
 def _frame_scalars(table):

@@ -19,11 +19,11 @@ within a frame by partitioning space into x-bands processed serially
   3. halo exchange: each band sends its right margin (points within R of
      its right boundary, with their local component ids) to its right
      neighbour (``Mesh.shift_right``); the receiver tests d² <= R²
-     between the received margin and its own left margin, with the
-     single-device exact test's arithmetic (dx², + dy², + dz², unfused,
-     compared in float32), so a pair on the knife edge d² = R² gets the
-     same verdict. Every cross-band edge of the radius graph has both
-     endpoints inside these margins.
+     between the received margin and its own left margin, its d² rounded
+     as the JAX package's halo test rounds it on the CPU (``_cross_edges``),
+     so a pair on the knife edge d² = R² gets the JAX band path's verdict.
+     Every cross-band edge of the radius graph has both endpoints inside
+     these margins.
   4. label merge: 16 min-label rounds over each boundary's bipartite
      graph leave one merge pair per margin point; the pairs of every band
      are gathered and every rank runs the same hook-to-min +
@@ -47,7 +47,7 @@ import torch
 from ..config import ClusteringConfig, PipelineConfig, SpatialConfig
 from ..ops import stixel as sx
 from ..ops.scan_utils import (IMAX, compact_mask, scatter_drop, set_drop,
-                              sort_by, take_rows)
+                              sort_by, sum_sq3, take_rows)
 from ..ops.segmentation import _f32
 from ..types import CLUSTER_INVALID, CLUSTER_UNDEFINED, ClusteringResult
 from .mesh import Mesh
@@ -143,13 +143,15 @@ def _merge_rounds(s: int) -> int:
 
 def _cross_edges(rx, rg, lx, lg, r2: float) -> torch.Tensor:
     """(..., H, H) bool: received right-margin point i (of the left
-    neighbour) within R of left-margin point j, both real. d² is the
-    single-device exact test's (ops/stixel.py::_d2, csrc/tier_min_d2.cu):
-    dx², + dy², + dz², unfused, compared with R² in float32."""
-    d2 = None
-    for a in range(3):
-        d = rx[..., :, None, a] - lx[..., None, :, a]
-        d2 = d * d if d2 is None else d2 + d * d
+    neighbour) within R of left-margin point j, both real. d² rounds as
+    the JAX package's halo test (``jnp.sum(d * d, axis=2)``) does on the
+    CPU, fma(z, z, fma(y, y, x·x)), found by crafted knife-edge pairs
+    across a band boundary (tools/knife_cases.py); compared with R² in
+    float32. The single-device exact test rounds otherwise
+    (kernels/tier_min_d2.py), so a crafted pair can link across bands and
+    not on one device, in the JAX package as here (ROADMAP §3)."""
+    d2 = sum_sq3(*(rx[..., :, None, a] - lx[..., None, :, a]
+                   for a in range(3)))
     return (d2 <= r2) & (rg >= 0)[..., :, None] & (lg >= 0)[..., None, :]
 
 

@@ -8,7 +8,8 @@ Port of tools/probe_mosaic2.py's three probes as parallel kernels
   C  2 * x over 16384 floats stored as (128, 128) tiles (exact)
 
 each on the JAX probe's seeded inputs, checked against numpy and timed
-with CUDA events.
+with CUDA events; A0 and C0 are A and C as the first port built them
+(``gather_sum_v0``, ``tile_scale_v0``), timed beside them.
 
     python -m lidar_processing_tpu_torch.tools.probe_mosaic2
 """
@@ -18,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.probe_mosaic2 import gather_sum, slice_sum, tile_scale
+from ..kernels.probe_mosaic2 import (gather_sum, gather_sum_v0, slice_sum,
+                                     tile_scale, tile_scale_v0)
 from ._common import clock, resolve_device, time_ms
 
 ROWS = 640
@@ -50,22 +52,26 @@ def slice_terms(off, planes) -> np.ndarray:
 
 
 def main(device=None, n: int = 16384, reps: int = 30) -> dict:
-    """Run A, B, C; check (A and C exact, B within 1e-5 of the sum of
-    |terms|; raises if not); time; returns {name: (result, ms)}."""
+    """Run A, A0, B, C, C0; check (A and C exact, B within 1e-5 of the sum
+    of |terms|; raises if not); time; returns {name: (result, ms)}."""
     dev = resolve_device(device)
     to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     idx, val = scalar_loads_inputs(n)
     off, planes = dyn_slice_inputs(n)
     x = accum_store_inputs(n)
     terms = slice_terms(off, planes)
+    sum_ok = lambda r: int(r[0, 0]) == int(  # noqa: E731
+        val[idx].astype(np.int64).sum())
+    scale_ok = lambda r: np.array_equal(r.reshape(-1), x * 2.0)  # noqa
     cases = (
-        ("A scalar loads", gather_sum, (to(idx), to(val)),
-         lambda r: int(r[0, 0]) == int(val[idx].astype(np.int64).sum())),
+        ("A scalar loads", gather_sum, (to(idx), to(val)), sum_ok),
+        ("A0 scalar loads, first port", gather_sum_v0, (to(idx), to(val)),
+         sum_ok),
         ("B dyn 2x384 slices", slice_sum, (to(off), to(planes)),
          lambda r: abs(float(r[0, 0]) - terms.sum())
          <= 1e-5 * np.abs(terms).sum()),
-        ("C accum+store", tile_scale, (to(x),),
-         lambda r: np.array_equal(r.reshape(-1), x * 2.0)),
+        ("C accum+store", tile_scale, (to(x),), scale_ok),
+        ("C0 accum+store, first port", tile_scale_v0, (to(x),), scale_ok),
     )
     out = {}
     for name, fn, args, check in cases:
@@ -75,7 +81,7 @@ def main(device=None, n: int = 16384, reps: int = 30) -> dict:
         ms = time_ms(lambda: fn(*args), dev, reps)
         print(f"{name} x{n} (ok=True): {ms * 1e3:9.1f} us -> "
               f"{ms * 1e6 / n:.2f} ns/item ({clock(dev)})", flush=True)
-        out[name[0]] = (res, ms)
+        out[name.split()[0]] = (res, ms)
     return out
 
 

@@ -28,6 +28,7 @@ from lidar_processing_tpu_torch.ops import clustering as tcl
 from lidar_processing_tpu_torch.ops import hull as thull
 from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
 from lidar_processing_tpu_torch.runtime import pipeline as tpipe
+from lidar_processing_tpu_torch.tools import knife_cases as kc
 from lidar_processing_tpu_torch.types import frame_of
 from test_torch_native import jax_native, jax_native_lib  # noqa: F401
 from test_torch_pipeline import _assert_outputs_equal, _leaves
@@ -91,6 +92,29 @@ def _assert_result_equal(got, want):
         g, w = getattr(got, field).numpy(), np.asarray(getattr(want, field))
         assert g.dtype == w.dtype == np.int32, field
         np.testing.assert_array_equal(g, w, err_msg=field)
+
+
+@pytest.fixture(scope="module")
+def screen_labels():
+    """tools/knife_cases.py's crafted pair per screen through both
+    packages' cellgraph ``cluster`` (the caps of test_cluster_matches_jax,
+    whose JAX compile this reuses)."""
+    xyz, cases = kc.screen_cloud()
+    got, want = _both(*pad_frame(xyz, CAP), _PCFG)
+    _assert_result_equal(got, want)
+    assert int(got.overflow) == 0
+    return cases, got.labels.numpy(), np.asarray(want.labels)
+
+
+@pytest.mark.parametrize("screen", sorted(kc.SCREENS))
+def test_knife_screens_match_jax(screen, screen_labels):
+    """Each screen's crafted knife pair gets the JAX package's verdict:
+    the gap and rep screens and the exact row scan all round as
+    fma(z, z, fma(y, y, x·x)) in both packages."""
+    cases, got, want = screen_labels
+    linked = kc.PORT_LINKED[screen][kc.PATHS.index("cellgraph")]
+    assert kc.linked(got, cases[screen]) == linked
+    assert kc.linked(want, cases[screen]) == linked
 
 
 @pytest.mark.parametrize("name", ["street0", "street1", "blobs"])

@@ -223,7 +223,26 @@ def test_mosaic2_kernels_match_twins(cuda):
     from lidar_processing_tpu_torch.tools import probe_mosaic2
     idx, val = (torch.from_numpy(a).to(cuda)
                 for a in probe_mosaic2.scalar_loads_inputs(16384))
-    assert torch.equal(m2.gather_sum(idx, val), m2.gather_sum_ref(idx, val))
+    # the probe's size, and ragged ones: n % 4 != 0 for the int4 loop
+    for n in (16384, 16383, 16381, 3, 0):
+        i_n = idx[:n].clone()
+        want = m2.gather_sum_ref(i_n, val)
+        before = (m2.gather_sum.launches, m2.gather_sum_v0.launches)
+        for got in (m2.gather_sum(i_n, val), m2.gather_sum(i_n, val, "atomic"),
+                    m2.gather_sum_v0(i_n, val)):
+            assert got.shape == (1, 1) and torch.equal(got, want), n
+        assert (m2.gather_sum.launches, m2.gather_sum_v0.launches) == (
+            before[0] + 2, before[1] + 1)
+    with pytest.raises(ValueError, match="aligned"):
+        m2.gather_sum(idx[1:], val)
+    # a non-multiple of 1024 elements: the last block partly idle
+    for n in (16384, 16384 + 128, 128):
+        x = torch.randn(n, device=cuda)
+        want = m2.tile_scale_ref(x)
+        assert torch.equal(m2.tile_scale(x), want), n
+        assert torch.equal(m2.tile_scale_v0(x), want), n
+    with pytest.raises(ValueError, match="aligned"):
+        m2.tile_scale(torch.zeros(16384 + 1, device=cuda)[1:])
     off, planes = probe_mosaic2.dyn_slice_inputs(16384)
     terms = probe_mosaic2.slice_terms(off, planes)
     off, planes = torch.from_numpy(off).to(cuda), torch.from_numpy(
@@ -232,6 +251,45 @@ def test_mosaic2_kernels_match_twins(cuda):
         <= 1e-5 * np.abs(terms).sum()
     x = torch.from_numpy(probe_mosaic2.accum_store_inputs(16384)).to(cuda)
     assert torch.equal(m2.tile_scale(x), m2.tile_scale_ref(x))
+
+
+def test_launch_skips_the_guard_on_the_current_device(cuda):
+    """On the current device the launch path enters no device guard and
+    still launches (counted) on the tensor's device."""
+    from lidar_processing_tpu_torch.kernels import probe_mosaic2 as m2
+    x = torch.randn(16384, device=cuda)
+    m2.tile_scale(x)                                  # binds the library
+
+    def no_guard(*a, **k):
+        raise AssertionError("guard entered on the current device")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "device", no_guard)
+        before = m2.tile_scale.launches
+        got = m2.tile_scale(x)
+        assert m2.tile_scale.launches == before + 1
+    assert got.device == x.device
+    assert torch.equal(got, m2.tile_scale_ref(x))
+    assert torch.cuda.current_device() == cuda.index
+
+
+def test_launch_on_a_second_card(cuda):
+    """A tensor on another card than the current one launches there,
+    through the device guard; skips with one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from lidar_processing_tpu_torch.kernels import probe_mosaic2 as m2
+    for cur, other in ((0, 1), (1, 0)):
+        with torch.cuda.device(cur):
+            x = torch.randn(16384, device=f"cuda:{other}")
+            idx = torch.randint(0, 100, (16383,), dtype=torch.int32,
+                                device=x.device)
+            val = torch.arange(100, dtype=torch.int32, device=x.device)
+            got = m2.tile_scale(x)
+            s = m2.gather_sum(idx, val)
+            assert got.device == x.device and s.device == x.device
+            assert torch.equal(got, m2.tile_scale_ref(x))
+            assert torch.equal(s, m2.gather_sum_ref(idx, val))
+            assert torch.cuda.current_device() == cur
 
 
 def test_batched_kernels_match_single_launches(cuda):

@@ -10,6 +10,8 @@ kernel's per-slot formula against the twin. tests/test_torch_cuda.py
 compares the CUDA kernels with the twins on the card.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from lidar_processing_tpu_torch.kernels import union_find as tuf
 from lidar_processing_tpu_torch.kernels.min_d2 import (min_d2_planar,
                                                        min_d2_planar_ref)
 from lidar_processing_tpu_torch.ops import stixel as tsx
+from lidar_processing_tpu_torch.tools.knife_cases import d2_fma_xy
 from lidar_processing_tpu_torch.tools.kernel_cases import (tier_cases,
                                                            uf_graphs,
                                                            uf_oracle)
@@ -153,9 +156,12 @@ _SMALL_TIERS = ((8, 32, 40), (8, 96, 16), (32, 96, 24), (96, 96, 12),
 _TIER_CASES = {name: case for name, *case in tier_cases(_SMALL_TIERS)}
 
 
+@functools.partial(jax.jit, static_argnames=("tiers",))
 def _jax_tier_loop(xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers):
     """The JAX package's per-tier loop of _tiered_exact, up to min d²:
-    dynamic slice, unpack, _stacked_windows on both sides, min_d2."""
+    dynamic slice, unpack, _stacked_windows on both sides, min_d2; jitted,
+    as it runs inside the JAX package's jitted ``cluster`` (eagerly, op by
+    op, XLA would round each product and sum of d² on its own)."""
     out = []
     for t, (u_cap, v_cap, slots) in enumerate(tiers):
         act = jnp.arange(slots, dtype=jnp.int32) < n_in_tier[t]
@@ -166,7 +172,7 @@ def _jax_tier_loop(xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers):
         pu = jsx._stacked_windows(xyz, us, uc, jsx._F_BIG, u_cap, sr=8)
         pv = jsx._stacked_windows(xyz, vs, vc, -jsx._F_BIG, v_cap, sr=32)
         out.append(min_d2_planar_xla(*pu, *pv))
-    return np.asarray(jnp.concatenate(out))
+    return jnp.concatenate(out)
 
 
 @pytest.mark.parametrize("name", sorted(_TIER_CASES))
@@ -177,7 +183,7 @@ def test_tier_min_d2_twin_matches_jax_tier_loop(name):
     running past the buffer's last point."""
     case = _TIER_CASES[name]
     got = ttm.tier_min_d2_ref(*map(torch.from_numpy, case), _SMALL_TIERS)
-    want = _jax_tier_loop(*map(jnp.asarray, case), _SMALL_TIERS)
+    want = np.asarray(_jax_tier_loop(*map(jnp.asarray, case), _SMALL_TIERS))
     assert got.dtype == torch.float32
     assert got.shape == (sum(s for *_, s in _SMALL_TIERS),)
     np.testing.assert_array_equal(got.numpy().view(np.int32),
@@ -187,8 +193,9 @@ def test_tier_min_d2_twin_matches_jax_tier_loop(name):
 def _kernel_model(xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers):
     """csrc/tier_min_d2.cu's per-slot formula, written out in numpy f32:
     the clamped slice start, the active test, the count clamp, the read of
-    a point index q as row clamp(q >> log2(sr)), lane q mod sr, and an
-    empty side as its one fill point."""
+    a point index q as row clamp(q >> log2(sr)), lane q mod sr, an
+    empty side as its one fill point, and d² = fma(dz, dz, fma(dx, dx,
+    dy·dy))."""
     n, length = xyz.shape[0], s_usuc.shape[0]
     big = np.float32(1.0e9)
 
@@ -206,12 +213,7 @@ def _kernel_model(xyz, s_usuc, s_vsvc, starts, n_in_tier, tiers):
             act = k < n_in_tier[t]
             u = run(s_usuc[lo + k] if act else 0, u_cap, 3, big)
             v = run(s_vsvc[lo + k] if act else 0, v_cap, 5, -big)
-            d = u[:, None, 0] - v[None, :, 0]
-            d2 = d * d
-            for a in (1, 2):
-                d = u[:, None, a] - v[None, :, a]
-                d2 = d2 + d * d
-            out.append(d2.min())
+            out.append(d2_fma_xy(u[:, None] - v[None, :]).min())
     return np.array(out, np.float32)
 
 

@@ -235,9 +235,10 @@ def test_probe_mosaic2_twins_match_pallas_interpret(monkeypatch):
     want_a, want_b, want_c = outs
 
     idx, val = tmos2.scalar_loads_inputs(n_a)
-    got_a = tm2.gather_sum(torch.from_numpy(idx), torch.from_numpy(val))
-    assert got_a.dtype == torch.int32
-    np.testing.assert_array_equal(got_a.numpy(), want_a)
+    for fn in (tm2.gather_sum, tm2.gather_sum_v0):
+        got_a = fn(torch.from_numpy(idx), torch.from_numpy(val))
+        assert got_a.dtype == torch.int32
+        np.testing.assert_array_equal(got_a.numpy(), want_a)
 
     off, planes = tmos2.dyn_slice_inputs(n_b)
     got_b = tm2.slice_sum(torch.from_numpy(off), torch.from_numpy(planes))
@@ -247,13 +248,14 @@ def test_probe_mosaic2_twins_match_pallas_interpret(monkeypatch):
         <= 1e-5 * np.abs(terms).sum()
 
     x = tmos2.accum_store_inputs(n_c)
-    got_c = tm2.tile_scale(torch.from_numpy(x))
-    np.testing.assert_array_equal(got_c.numpy(), want_c)
+    for fn in (tm2.tile_scale, tm2.tile_scale_v0):
+        np.testing.assert_array_equal(fn(torch.from_numpy(x)).numpy(),
+                                      want_c)
 
 
 def test_probe_mosaic2_main_and_edge_cases():
     out = tmos2.main(device="cpu", n=2048, reps=1)
-    assert set(out) == {"A", "B", "C"}
+    assert set(out) == {"A", "A0", "B", "C", "C0"}
     # indices clamp into range, as the kernels' do
     val = torch.arange(10, dtype=torch.int32)
     got = tm2.gather_sum(torch.tensor([-3, 4, 99], dtype=torch.int32), val)
@@ -263,6 +265,8 @@ def test_probe_mosaic2_main_and_edge_cases():
     assert float(got) == float(planes[2:4].sum())
     with pytest.raises(ValueError):
         tm2.tile_scale(torch.zeros(100))
+    with pytest.raises(ValueError):
+        tm2.tile_scale_v0(torch.zeros(100))
 
 
 def test_probe_entry_points_need_a_named_device_without_a_gpu(monkeypatch):

@@ -45,6 +45,7 @@ from lidar_processing_tpu_torch.parallel.spatial import (cluster_spatial,
                                                          cluster_spatial_2d)
 from lidar_processing_tpu_torch.runtime.pipeline import (
     device_frame_step, device_frame_step_batched)
+from lidar_processing_tpu_torch.tools import knife_cases as kc
 from lidar_processing_tpu_torch.types import SEG_OBSTACLE, SEG_UNKNOWN
 
 CFG = DEFAULT_CONFIG
@@ -241,15 +242,13 @@ def test_dropped_points_are_overflow_and_unknown(step_frame):
     assert int(cl.overflow) > 0
 
 
-# (x of A, x of B, z of B): d² of A = (xa, y, 0) and B = (xb, y, zb) is,
-# summed unfused (dx², + dy², + dz²) in float32, one ULP under R² = 0.18f,
-# equal to it, one ULP over it, and equal to it where a fused
-# multiply-add of dz² rounds one ULP over
-KNIFE = ((-0.2, 0.22426403, 0.00021114), (-0.2, 0.22426403, 0.00024385),
-         (-0.2, 0.22426403, 0.00027238), (-0.1, 0.20210448, 0.29788068))
-KNIFE_LINKED = (True, True, False, True)
-# the JAX package's verdicts: XLA's CPU compile fuses the d² sum, so row
-# 4 falls one ULP over R² there (ROADMAP §3)
+# tools/knife_cases.py's KNIFE rows, (x of A, x of B, z of B): d² of A =
+# (xa, y, 0) and B = (xb, y, zb) is, summed unfused (dx², + dy², + dz²) in
+# float32, one ULP under R² = 0.18f, equal to it, one ULP over it, and
+# equal to it where fma(dz, dz, dx²) rounds one ULP over. The port's
+# screens round as the JAX package's (that fma), so both decide row 4
+# alike (ROADMAP §3).
+KNIFE_LINKED = (True, True, False, False)
 KNIFE_LINKED_JAX = (True, True, False, False)
 
 
@@ -258,27 +257,20 @@ def test_knife_edge_pairs_across_a_band_boundary():
     boundary lies at x ~ 1e-5), each end chained to 3 more points on its
     own side so both ends are clusters of 4: a pair whose float32 d² is
     <= R² links them into one cluster of 8, on the band path as on the
-    single-device path. The JAX package's single-device clustering
-    agrees on rows 1-3 and, fusing the sum, not on row 4."""
+    single-device path and in the JAX package's single-device clustering,
+    where d² rounds as fma(dz, dz, fma(dy, dy, dx²)) (dy = 0 here)."""
     f32 = np.float32
-    rows = []
-    for row, (xa, xb, zb) in enumerate(KNIFE):
-        y = 5.0 * row
-        rows += [[f32(xa) - f32(0.1 * k), y, 0.0] for k in range(4)]
-        rows += [[f32(xb) + f32(0.1 * k), y, zb] for k in range(4)]
-        d = np.array([xa, y, 0], f32) - np.array([xb, y, zb], f32)
+    for row, (xa, xb, zb) in enumerate(kc.KNIFE):
+        d = np.array([xa, 0, 0], f32) - np.array([xb, 0, zb], f32)
         d2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
-        fused = f32(np.float64(d[0] * d[0] + d[1] * d[1])
-                    + np.float64(d[2]) * np.float64(d[2]))
-        assert (d2 <= f32(0.18), fused <= f32(0.18)) == (
+        fused = kc.d2_fma_yx(d)
+        assert (d2 <= f32(0.18)) == (row != 2)
+        assert (fused <= f32(0.18), fused <= f32(0.18)) == (
             KNIFE_LINKED[row], KNIFE_LINKED_JAX[row])
-    anchors = [[-10.0 + 0.1 * k, 30.0, 0.0] for k in range(4)] + [
-        [10.0 - 0.1 * k, 30.0, 0.0] for k in range(4)]
-    x, m = pad_frame(np.asarray(rows + anchors, f32), 256)
-    pcfg = dataclasses.replace(
-        CFG.pipeline, max_points=256, max_obstacle_points=256,
-        max_cells=256, max_columns=128, max_supernodes=192,
-        max_column_pairs=512, max_sn_pairs=512, max_live_edges=128)
+    # the crafted screens' caps (the shipped ones at 8192 points), so the
+    # JAX package's stixel compile serves both tests
+    pcfg = kc.PIPELINE
+    x, m = pad_frame(kc.knife_rows(), pcfg.max_points)
     tx, tm = _t(x, m)
     got = cluster_spatial(_mesh(2), tx, tm, CFG.clustering, pcfg, SCFG_1K)
     _assert_cluster_equal(got, sx.cluster(tx, tm, CFG.clustering, pcfg))
@@ -286,12 +278,66 @@ def test_knife_edge_pairs_across_a_band_boundary():
                                   _jax_cfg(CFG).clustering,
                                   _jax_cfg(CFG.replace(pipeline=pcfg)
                                            ).pipeline).labels)
-    for lab, linked_rows in ((got.labels.numpy(), KNIFE_LINKED),
-                             (jlab, KNIFE_LINKED_JAX)):
-        for row, linked in enumerate(linked_rows):
-            ends = lab[row * 8:row * 8 + 8]
-            assert (ends >= 0).all()
-            assert (len(set(ends)) == 1) == linked, (row, ends)
+    assert kc.knife_linked(got.labels.numpy()) == KNIFE_LINKED
+    assert kc.knife_linked(jlab) == KNIFE_LINKED_JAX
+
+
+@pytest.fixture(scope="module")
+def screen_runs():
+    """tools/knife_cases.py's crafted pair per screen, through the port's
+    and the JAX package's stixel ``cluster`` and ``cluster_spatial`` (8
+    bands: the pairs across a boundary straddle the 4th; the caps of
+    test_blobs_on_8_shards_match_jax_and_single_device, whose JAX compile
+    this reuses; chip_smoke.py runs 2 bands at the shipped SpatialConfig):
+    {path: labels}."""
+    xyz, cases = kc.screen_cloud()
+    x, m = pad_frame(xyz, kc.PIPELINE.max_points)
+    cfg = CFG.replace(pipeline=kc.PIPELINE, spatial=SCFG_8K)
+    jcfg = _jax_cfg(cfg)
+    tx, tm = _t(x, m)
+    jx, jm = jnp.asarray(x), jnp.asarray(m)
+    runs = {
+        "port stixel": sx.cluster(tx, tm, cfg.clustering, cfg.pipeline),
+        "port bands": cluster_spatial(_mesh(8), tx, tm, cfg.clustering,
+                                      cfg.pipeline, cfg.spatial),
+        "jax stixel": jsx.cluster(jx, jm, jcfg.clustering, jcfg.pipeline),
+        "jax bands": jsp.cluster_spatial(_jax_mesh(), jx, jm,
+                                         jcfg.clustering, jcfg.pipeline,
+                                         jcfg.spatial)}
+    for name, r in runs.items():
+        assert int(np.asarray(r.overflow)) == 0, name
+    return cases, {k: np.asarray(r.labels) for k, r in runs.items()}
+
+
+@pytest.mark.parametrize("screen", sorted(kc.SCREENS))
+def test_knife_screens_match_jax(screen, screen_runs):
+    """Each screen's crafted knife pair gets the JAX package's verdict on
+    the single-device path and on the band path. Two known exceptions,
+    both the JAX package's own: its bands' stixel (block_cells 4096 here,
+    16384 shipped) rounds the k = 1 cell rep screen unfused, its single
+    device (max_cells 20480) fused, and the port fuses both
+    (``cell_rep``); and a pair
+    across the band boundary goes through the halo test (fused as
+    fma(z, z, fma(y, y, x²))) on the bands and through the exact test
+    (fma(z, z, fma(x, x, y²))) on one device (``halo_split``), so the
+    bands == single-device gate does not hold for it, in either package."""
+    cases, labels = screen_runs
+    case = cases[screen]
+    got = {p: kc.linked(labels[f"port {p}"], case) for p in ("stixel",
+                                                              "bands")}
+    want = {p: kc.linked(labels[f"jax {p}"], case) for p in ("stixel",
+                                                              "bands")}
+    jax_table = dict(zip(kc.PATHS, kc.JAX_LINKED[screen]))
+    port_table = dict(zip(kc.PATHS, kc.PORT_LINKED[screen]))
+    assert want == {p: jax_table[p] for p in want}
+    assert got == {p: port_table[p] for p in got}
+    if screen == "cell_rep":
+        assert (got["bands"], want["bands"]) == (True, False)
+        assert got["stixel"] == want["stixel"]
+    else:
+        assert got == want
+    if screen != "halo_split":
+        assert got["bands"] == got["stixel"]
 
 
 def test_shards_must_divide_over_the_ranks(monkeypatch):
