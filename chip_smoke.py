@@ -100,9 +100,22 @@ Phases (any failure raises, so the script never exits 0 after one):
      take (bound); then both main-path kernels' batched launches on
      frames 0-7's own calls (phase 7) against 8 single launches and the
      batched twins, bit for bit, timed;
-  15. probes: the kernels of the TPU probes in tools/ against their twins
-     at the JAX probes' own sizes (union-find variants equal, pair minima
-     <= 4 ULP, mosaic2 A and C equal, B within 1e-5 of the sum of |terms|),
+  15. probes: the union-find probes first (check_uf_probes): uf_probe,
+     uf_serial, uf_packed and uf_packed_noskip equal to the twin and scipy
+     on every contract graph, ragged edge arrays and the three graphs
+     below, one launch a call, a misaligned edge view raising; then on
+     probe_uf's graph, probe_uf2's fallback graph and frame 0's edges the
+     share of edges the window screen takes off lane 0 (the schedule
+     model), each variant with kernel ms (events around isolated calls),
+     device ms (torch.profiler: total over the calls and the mean of the
+     events it kept, with their count), warm ms (events over back-to-back
+     calls), host us a call and ns a live edge, the SM clock and power of
+     the card in use sampled by nvidia-smi during the kernel and warm
+     runs, union_find beside them, and the events / profiler ratios over
+     every turn, with the events a profile keeps without its warm-up
+     step; then the other probe kernels against their twins at the JAX
+     probes' own sizes (pair minima <= 4 ULP, mosaic2 A and C equal, B
+     within 1e-5 of the sum of |terms|),
      timed the same way; mosaic2's redesigned A (gather_sum, one kernel a
      call, both designs) and C (tile_scale) also equal to their first-port
      versions (gather_sum_v0, tile_scale_v0) at ragged sizes, then v0,
@@ -111,7 +124,7 @@ Phases (any failure raises, so the script never exits 0 after one):
      us a call (the host clock over 1000 calls, no synchronise in the
      loop), and the launch path's host split; slice_sum beside
      index_select + sum; frame 0's edge list through every union-find
-     variant and the twin (all equal), and its small ambiguous supernode
+     kernel and the twin (all equal), and its small ambiguous supernode
      pairs through the pair kernel and through _stacked_windows +
      min_d2_planar (bit for bit), both timed; then the probe entry points
      (tools/probe_*.main) with the launch counts reset: every probe kernel
@@ -155,6 +168,14 @@ NB_QUERIES = 4096          # NeighborIndex queries on frame 0
 SPATIAL_SHARDS = (8, 4)    # x-band shards of the parallel phase
 SPATIAL_BLOCK_POINTS = 131072  # the spatial step's block_points (32768)
 HOST_CALLS = 1000          # calls a host-us measurement loops over
+UF_PROFILE = 10            # calls a union-find probe's profile records
+UF_HOST_CALLS = 50         # calls its host-us measurement loops over
+SMI_MS = 20                # nvidia-smi's sampling interval beside a timing
+TURN_LEGEND = (f"a turn: kernel ms [median SM clock, power draw sampled "
+               f"by nvidia-smi every {SMI_MS} ms] / device ms (profiler "
+               f"total / {UF_PROFILE} calls) (events it kept: their mean "
+               f"ms) / warm ms [clock, power] / host us a call / ns a live "
+               f"edge (mean kept event)")
 
 
 def log(msg: str) -> None:
@@ -199,20 +220,39 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def profiled(fn, reps: int, warmup: bool = True):
+    """torch.profiler's key averages (CUDA activity) of `reps` calls of
+    fn(), recorded after a warm-up step of as many calls whose events are
+    dropped: a profile without one (`warmup` False) can lose its first
+    kernel events (check_uf_probes counts them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    if not warmup:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return prof.key_averages()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof.key_averages()
+
+
 def device_ms(fn, reps: int = 10):
     """Device time of one fn() call: the CUDA kernels it ran, summed as
     torch.profiler records them, so the host's launch path between them
     is left out (CUDA events around one call include it whenever the host
     is slower than the card). None if the profiler saw no device work."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+    total_us = sum(e.self_device_time_total for e in profiled(fn, reps)
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     return total_us / 1e3 / reps if total_us > 0 else None
 
@@ -235,6 +275,14 @@ def ulp_diff(a, b) -> int:
                       - b.view(np.int32).astype(np.int64)).max(initial=0))
 
 
+def smi_card() -> list:
+    """nvidia-smi's -i for the card this process uses as cuda:0, by its
+    UUID: nvidia-smi ignores CUDA_VISIBLE_DEVICES."""
+    import torch
+    uuid = str(torch.cuda.get_device_properties(0).uuid)
+    return ["-i", uuid if uuid.startswith("GPU-") else f"GPU-{uuid}"]
+
+
 def check_device():
     import torch
     if not torch.cuda.is_available():
@@ -248,11 +296,12 @@ def check_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", *smi_card(), "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}; host CPU {host_cpu()}")
+        f"python {sys.version.split()[0]}; host CPU {host_cpu()}; "
+        f"nvidia-smi reads cuda:0 as {smi_card()[1]}")
     return torch.device("cuda", 0), smi
 
 
@@ -552,16 +601,220 @@ def pair_bound(us, uc, vs, vc, v_cap: int, n: int) -> dict:
     return bound(12 * touched + 20 * len(us), ops)
 
 
+class SmiSampler:
+    """nvidia-smi sampling the SM clock, power draw and power limit of
+    the card in use (smi_card) every SMI_MS ms in a process of its own
+    while the block runs; `samples` holds (MHz, W, W) rows taken after the
+    sampler was up (empty when nvidia-smi gave none). The process is
+    stopped on exit."""
+
+    def __enter__(self):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", *smi_card(),
+             "--query-gpu=clocks.sm,power.draw,power.limit",
+             "--format=csv,noheader,nounits", "-lms", str(SMI_MS)],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.proc.stdout.readline()     # up and sampling from here on
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        for line in out.splitlines():
+            try:
+                self.samples.append(tuple(float(v) for v in line.split(",")))
+            except ValueError:
+                pass
+        return False
+
+    def clock(self) -> str:
+        """Median SM MHz / power W of the samples."""
+        if not self.samples:
+            return "not measured"
+        mhz = sorted(r[0] for r in self.samples)
+        watts = sorted(r[1] for r in self.samples)
+        return f"{mhz[len(mhz) // 2]:.0f} MHz {watts[len(watts) // 2]:.0f} W"
+
+
+def kernel_device_ms(fn, reps: int = 10):
+    """fn() runs one CUDA kernel: (ms a call as torch.profiler's total over
+    `reps` calls, the mean of the kernel events it kept, and how many it
+    kept). A profile that drops events makes the first understate and
+    leaves the second; (None, None, 0) if it saw none."""
+    import torch
+    total_us, kept = 0.0, 0
+    for e in profiled(fn, reps):
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total_us += e.self_device_time_total
+            kept += e.count
+    if kept == 0:
+        return None, None, 0
+    return total_us / 1e3 / reps, total_us / 1e3 / kept, kept
+
+
+def uf_turn(fn) -> dict:
+    """One turn of a union-find kernel: kernel ms (CUDA events around each
+    of >= 10 isolated calls, median, ~0.1 s of them) with the SM clock
+    sampled meanwhile; device ms (torch.profiler over UF_PROFILE calls:
+    total / calls and the mean of the kept events, with their count); warm
+    ms (events over as many back-to-back calls) with the clock sampled;
+    host us a call (UF_HOST_CALLS calls, no synchronise in the loop)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    reps = max(10, min(200, int(0.1 / max(time.perf_counter() - t0, 1e-4))))
+    with SmiSampler() as iso:
+        k_ms = cuda_ms(fn, reps)
+    d_ms, d_event_ms, kept = kernel_device_ms(fn, UF_PROFILE)
+    with SmiSampler() as warm:
+        w_ms = warm_ms(fn, reps)
+    return {"kernel": k_ms, "device": d_ms, "event": d_event_ms,
+            "kept": kept, "warm": w_ms, "host": host_us(fn, UF_HOST_CALLS),
+            "clock_iso": iso.clock(), "clock_warm": warm.clock()}
+
+
+def fmt_turn(t: dict, n_edges: int) -> str:
+    """One uf_turn, in TURN_LEGEND's order."""
+    ns = ("-" if t["event"] is None
+          else f"{t['event'] * 1e6 / max(n_edges, 1):.1f}")
+    ev = "-" if t["event"] is None else f"{t['event']:.4f}"
+    return (f"{t['kernel']:.4f} [{t['clock_iso']}] / {fmt_ms(t['device'])} "
+            f"({t['kept']}: {ev}) / {t['warm']:.4f} [{t['clock_warm']}] / "
+            f"{t['host']:.1f} us / {ns} ns")
+
+
+def check_uf_probes(device, frame_edges, smi: str) -> list:
+    """The union-find probe kernels of csrc/probe_uf.cu (uf_probe,
+    uf_serial, uf_packed, uf_packed_noskip): each equal to the twin and to
+    scipy on every contract graph and on the three graphs timed below, and
+    on ragged edge arrays (ec no multiple of 4); a misaligned edge view
+    raises. Then on probe_uf's graph, probe_uf2's fallback graph and frame
+    0's edges: the share of edges the schedule model screens off lane 0,
+    a uf_turn of each variant and of union_find; the events-against-
+    profiler ratios over every turn, and the kernel events a profile of
+    UF_PROFILE calls keeps without its warm-up step. Returns the 4
+    kernels' records (on the JAX probe's own graph)."""
+    import torch
+    from lidar_processing_tpu_torch.kernels import probe_uf as puf
+    from lidar_processing_tpu_torch.kernels.union_find import (cc_labels,
+                                                               cc_labels_ref)
+    from lidar_processing_tpu_torch.tools import probe_uf, probe_uf2
+    from lidar_processing_tpu_torch.tools.kernel_cases import (uf_graphs,
+                                                               uf_oracle)
+    s = probe_uf.S
+    i32 = lambda a: torch.as_tensor(  # noqa: E731
+        np.asarray(a), dtype=torch.int32, device=device)
+    graphs = {"probe_uf": tuple(map(i32, probe_uf.make_inputs())),
+              "probe_uf2": tuple(map(i32, probe_uf2.make_inputs())),
+              "frame 0": tuple(frame_edges)}
+
+    def calls(name, g, s_cap=s):
+        """(kernel call, its edges unpacked as the kernel reads them)."""
+        fn = getattr(puf, name)
+        if name.startswith("uf_packed"):
+            euv = puf.pack_edges(g[0], g[1])
+            return (lambda: fn(euv, g[2], s_cap)), puf.unpack_edges(euv)
+        return (lambda: fn(*g, s_cap)), g[:2]
+
+    contract = [(n, *map(i32, (eu, ev, ne)), uf_oracle)
+                for n, eu, ev, ne in uf_graphs()]
+    for gname, *g, oracle in contract + [(k, *g, None)
+                                         for k, g in graphs.items()]:
+        for name in puf.VARIANTS:
+            call, (a, b) = calls(name, g)
+            before = getattr(puf, name).launches
+            got = call()
+            if getattr(puf, name).launches != before + 1:
+                raise AssertionError(f"{name} on {gname}: not one launch")
+            want = cc_labels_ref(a, b, g[2], s)
+            if not torch.equal(got, want) or (oracle is not None and not
+                    np.array_equal(got.cpu().numpy(), oracle(
+                        a.cpu().numpy(), b.cpu().numpy(), int(g[2]), s))):
+                raise AssertionError(f"{name} on {gname}: "
+                                     f"{int((got != want).sum())} differ")
+    rng = np.random.default_rng(7)
+    for ec in (1001, 4099):
+        eu = rng.integers(0, 300, ec)
+        g = (i32(eu), i32(np.minimum(299, eu + rng.integers(1, 4, ec))),
+             i32(ec + 3))
+        for name in puf.VARIANTS:
+            call, (a, b) = calls(name, g, 300)
+            if not torch.equal(call(), cc_labels_ref(a, b, g[2], 300)):
+                raise AssertionError(f"{name}: ragged ec={ec} differs")
+    e = i32(np.arange(1025) % 64)
+    try:
+        puf.uf_serial(e[1:], e[:1024], i32(1000), 64)
+        raise AssertionError("uf_serial took an edge view off 16 bytes")
+    except ValueError:
+        pass
+    log(f"union-find probes: the 4 kernels == the twin on the "
+        f"{len(contract)} contract graphs (== scipy), ragged ec 1001 and "
+        f"4099, and {', '.join(graphs)}; one launch a call; a misaligned "
+        f"edge view raises")
+
+    line = {"uf_probe": "tools/probe_uf.py:26",
+            "uf_serial": "tools/probe_uf2.py:50",
+            "uf_packed": "tools/probe_uf2.py:77",
+            "uf_packed_noskip": "tools/probe_uf2.py:105"}
+    records, every = [], []
+    for gname, g in graphs.items():
+        n_e = int(g[2])
+        eu_np, ev_np = g[0].cpu().numpy(), g[1].cpu().numpy()
+        _, screened = puf.schedule_model(eu_np, ev_np, n_e, s, True, True)
+        _, outcome = puf.serial_model(eu_np, ev_np, n_e, s, True, True)
+        log(f"union-find probes on {gname} ({n_e} live edges, {s} nodes; "
+            f"{smi}; {TURN_LEGEND}): the window screen takes "
+            f"{len(screened)} ({len(screened) / max(n_e, 1):.1%}) of the "
+            f"edges off lane 0 (schedule_model); the serial pass skips "
+            f"{outcome.count('skip')} "
+            f"({outcome.count('skip') / max(n_e, 1):.1%})")
+        for variant in puf.VARIANTS:
+            call, (a, b) = calls(variant, g)
+            turn = uf_turn(call)
+            every.append(turn)
+            log(f"  {variant}: {fmt_turn(turn, n_e)}")
+            own = "probe_uf" if variant == "uf_probe" else "probe_uf2"
+            if gname == own:
+                want = cc_labels_ref(a, b, g[2], s)
+                err = int((call() - want).abs().max())
+                ebytes = 4 if variant.startswith("uf_packed") else 8
+                records.append({
+                    "name": variant, "source": f"{CSRC}/probe_uf.cu",
+                    "replaces": line[variant], "max_abs_err": err,
+                    "ms": turn["kernel"],
+                    "plain_ms": cuda_ms(lambda: cc_labels_ref(a, b, g[2], s)),
+                    **uf_bound(n_e, ebytes, s), "library_ms": None})
+        log(f"  union_find: "
+            f"{fmt_turn(uf_turn(lambda: cc_labels(*g, s)), n_e)}")
+
+    def spread(k):
+        r = [t[k] / t["event"] for t in every if t["event"]]
+        return f"{min(r):.3f}-{max(r):.3f}" if r else "not measured"
+    lost = sum(t["kept"] < UF_PROFILE for t in every)
+    call, _ = calls("uf_serial", graphs["probe_uf2"])
+    cold = [sum(e.count for e in profiled(call, UF_PROFILE, warmup=False)
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+            for _ in range(3)]
+    log(f"events against the profiler over {len(every)} turns: kernel ms / "
+        f"device ms per kept event {spread('kernel')}, warm ms / it "
+        f"{spread('warm')}, device ms (total / calls) / it "
+        f"{spread('device')}; profiles that kept fewer than {UF_PROFILE} of "
+        f"{UF_PROFILE} events: {lost}; without the warm-up step, 3 profiles "
+        f"of {UF_PROFILE} uf_serial calls kept {cold} kernel events")
+    return records
+
+
 def check_probe_kernels(device) -> list:
-    """Each probe kernel against its twin at the JAX probe's own sizes,
-    with times; returns their records (launches are filled in later)."""
+    """Each pair and mosaic2 probe kernel against its twin at the JAX
+    probe's own sizes, with times; returns their records (launches are
+    filled in later; the union-find probes are check_uf_probes')."""
     import torch
     from lidar_processing_tpu_torch.kernels import probe_pairs as pp
-    from lidar_processing_tpu_torch.kernels import probe_uf as puf
-    from lidar_processing_tpu_torch.kernels.union_find import cc_labels_ref
-    from lidar_processing_tpu_torch.tools import (probe_mosaic,
-                                                  probe_mosaic3, probe_uf,
-                                                  probe_uf2)
+    from lidar_processing_tpu_torch.tools import probe_mosaic, probe_mosaic3
     to = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa
     records = []
 
@@ -574,32 +827,6 @@ def check_probe_kernels(device) -> list:
             f"{fmt_ms(device_ms(call))}), plain {plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{b['bound_ms']:.6f} ms ({b['bound_by']}), max abs err {err}")
-
-    # union-find variants: tools/probe_uf.py and probe_uf2.py's inputs
-    s = probe_uf.S
-    eu, ev, ne = probe_uf.make_inputs()
-    g = (to(eu), to(ev), torch.tensor(ne, dtype=torch.int32, device=device))
-    eu2, ev2, ne2 = probe_uf2.make_inputs()
-    g2 = (to(eu2), to(ev2), torch.tensor(ne2, dtype=torch.int32,
-                                         device=device))
-    euv = puf.pack_edges(g2[0], g2[1])
-    for name, fn, args, twin_args, replaces, ebytes, n_e in (
-            ("uf_probe", puf.uf_probe, g, g, "tools/probe_uf.py:26", 8, ne),
-            ("uf_serial", puf.uf_serial, g2, g2, "tools/probe_uf2.py:50", 8,
-             ne2),
-            ("uf_packed", puf.uf_packed, (euv, g2[2]), g2,
-             "tools/probe_uf2.py:77", 4, ne2),
-            ("uf_packed_noskip", puf.uf_packed_noskip, (euv, g2[2]), g2,
-             "tools/probe_uf2.py:105", 4, ne2)):
-        got = fn(*args, s).cpu().numpy()
-        want = cc_labels_ref(*twin_args, s).cpu().numpy()
-        if not np.array_equal(got, want):
-            raise AssertionError(f"{name}: {np.sum(got != want)} labels "
-                                 f"differ from the twin")
-        add(name, "probe_uf.cu", replaces, int(np.abs(got - want).max()),
-            lambda: fn(*args, s),
-            cuda_ms(lambda: cc_labels_ref(*twin_args, s)),
-            uf_bound(n_e, ebytes, s), None)
 
     # pair minima: tools/probe_mosaic.py (v <= 48), probe_mosaic3.py (96)
     for name, fn, v_cap, (_, rows, *runs), lanes, replaces in (
@@ -665,19 +892,11 @@ def warm_ms(fn, calls: int = HOST_CALLS) -> float:
 def kernels_per_call(fn, reps: int = 5, tries: int = 5) -> dict:
     """{kernel name: launches a call} of fn(), as torch.profiler records
     them (device work only): the most of `tries` profiles of `reps` calls
-    each, since a profile late in a long process can drop a share of its
-    events."""
+    each, should a profile still drop a share of its events."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     most = {}
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
+        for e in profiled(fn, reps):
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 most[e.key] = max(most.get(e.key, 0.0), e.count / reps)
     return most
@@ -977,22 +1196,21 @@ def check_real_frame(device, res, dbg):
     s = cfg.pipeline.max_supernodes
     eu, ev, ne = dbg["e_u"], dbg["e_v"], dbg["n_edges"]
     euv = puf.pack_edges(eu, ev)
-    variants = (("union_find", lambda: cc_labels(eu, ev, ne, s)),
-                ("v0 uf_serial", lambda: puf.uf_serial(eu, ev, ne, s)),
-                ("v1 uf_packed", lambda: puf.uf_packed(euv, ne, s)),
-                ("v2 uf_packed_noskip", lambda: puf.uf_packed_noskip(euv, ne,
-                                                                     s)),
-                ("uf_probe", lambda: puf.uf_probe(eu, ev, ne, s)),
-                ("twin", lambda: cc_labels_ref(eu, ev, ne, s)))
+    variants = {"union_find": lambda: cc_labels(eu, ev, ne, s),
+                "twin": lambda: cc_labels_ref(eu, ev, ne, s)}
+    for name in puf.VARIANTS:
+        fn = getattr(puf, name)
+        variants[name] = ((lambda fn=fn: fn(euv, ne, s))
+                          if name.startswith("uf_packed")
+                          else (lambda fn=fn: fn(eu, ev, ne, s)))
     want = dbg["labels"]
-    for name, fn in variants:
+    for name, fn in variants.items():
         if not torch.equal(fn(), want):
             raise AssertionError(f"frame 0 edges: {name} differs")
     log(f"frame 0 (cluster_debug, {int(dbg['n_snp'])} supernode pairs, "
         f"{int(res.num_clusters)} clusters): {int(ne)} edges over {s} "
-        f"supernodes, every variant equal; "
-        + ", ".join(f"{name} {cuda_ms(fn):.4f} ms (device "
-                    f"{fmt_ms(device_ms(fn))})" for name, fn in variants))
+        f"supernodes, every variant equal ({', '.join(variants)}; timed by "
+        f"check_uf_probes)")
 
     sn, snp = dbg["sn"], cfg.pipeline.max_sn_pairs
     amb = ((torch.arange(snp, device=device) < dbg["n_snp"])
@@ -2241,6 +2459,7 @@ def main() -> None:
                    check_min_d2(device)]
         check_batched_kernels(batched_calls)
     with phase("probes"):
+        kernels += check_uf_probes(device, edges, smi)
         kernels += check_probe_kernels(device)
         probe_launches = run_probe_path(device, check_real_frame(device, res,
                                                                  dbg))

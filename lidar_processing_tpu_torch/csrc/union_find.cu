@@ -13,7 +13,7 @@
 // (latency), not bandwidth or flops: the 10240 labels (40 KB) and a
 // frame's ~20k edges (~160 KB) are read once. The TPU kernel ran the union
 // pass on one scalar core; on one CUDA thread that chain costs ~0.65 ms a
-// frame (csrc/probe_uf.cu keeps that design as uf_serial_launch).
+// frame (csrc/probe_uf.cu keeps the serial pass as uf_serial_launch).
 //
 // Design: ECL-CC's hook and compress (Jaiganesh & Burtscher, HPDC 2018),
 // in one block of 1024 threads with the labels in dynamic shared memory.

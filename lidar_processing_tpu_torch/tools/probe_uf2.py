@@ -45,8 +45,10 @@ def main(device=None, edges=None, s: int = S, reps: int = 50) -> dict:
     "ms": {variant: ms}}."""
     dev = resolve_device(device)
     eu, ev, ne = edges if edges is not None else make_inputs(s)
-    eu = torch.as_tensor(eu, dtype=torch.int32, device=dev).contiguous()
-    ev = torch.as_tensor(ev, dtype=torch.int32, device=dev).contiguous()
+    # fresh copies: the kernels bulk-copy the edges from a 16-byte aligned
+    # start, which a slice of a longer edge list need not have
+    eu, ev = (torch.as_tensor(e, dtype=torch.int32, device=dev).clone(
+        memory_format=torch.contiguous_format) for e in (eu, ev))
     ne = torch.as_tensor(ne, dtype=torch.int32, device=dev).reshape(())
     print(f"edges={int(ne)}", flush=True)
     euv = pack_edges(eu, ev)

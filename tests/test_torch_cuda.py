@@ -26,7 +26,7 @@ from lidar_processing_tpu_torch.ops.segmentation import gpf_segment_sorted
 from lidar_processing_tpu_torch.runtime import pipeline as tpipe
 from lidar_processing_tpu_torch.runtime.pipeline import (
     device_frame_step_packed)
-from lidar_processing_tpu_torch.tools import probe_uf2
+from lidar_processing_tpu_torch.tools import probe_uf, probe_uf2
 from lidar_processing_tpu_torch.tools.kernel_cases import (tier_cases,
                                                            uf_graphs,
                                                            uf_oracle)
@@ -108,6 +108,69 @@ def test_uf_serial_matches_twin(cuda):
         got = puf.uf_serial(*args, 10240).cpu()
         assert puf.uf_serial.launches == before + 1
         assert torch.equal(got, tuf.cc_labels_ref(*args, 10240).cpu()), name
+
+
+@pytest.mark.parametrize("name", list(puf.VARIANTS))
+def test_uf_probe_kernels_match_oracle(cuda, name):
+    """Each instantiation of csrc/probe_uf.cu on every contract graph,
+    probe_uf's graph and probe_uf2's fallback graph: the contract's labels
+    (scipy), one launch counted a call."""
+    fn = getattr(puf, name)
+    packed = name.startswith("uf_packed")
+    eu, ev, ne = probe_uf.make_inputs()
+    for graph, g, (teu, tev, tne) in [
+            *_graphs(cuda),
+            ("probe_uf", (eu, ev, ne), tuple(
+                torch.as_tensor(a, dtype=torch.int32, device=cuda)
+                for a in (eu, ev, ne)))]:
+        if packed:
+            euv = puf.pack_edges(teu, tev)
+            a, b = (t.cpu().numpy() for t in puf.unpack_edges(euv))
+            args = (euv, tne)
+        else:
+            a, b = g[0], g[1]
+            args = (teu, tev, tne)
+        before = fn.launches
+        got = fn(*args, 10240).cpu().numpy()
+        assert fn.launches == before + 1, graph
+        np.testing.assert_array_equal(got, uf_oracle(a, b, g[2], 10240),
+                                      err_msg=graph)
+
+
+def test_staged_uf_reads_the_edges_past_the_last_granule(cuda):
+    """ec no multiple of 4 with n_edges at or past ec: the producer reads
+    the last 1-3 edges itself; ec over one chunk puts them in a later
+    stage. Every staged variant gives the contract's labels."""
+    rng = np.random.default_rng(7)
+    for ec in (5, 1001, 1002, 1003, 4099):
+        eu = rng.integers(0, 300, ec).astype(np.int32)
+        ev = np.minimum(299, eu + rng.integers(1, 4, ec)).astype(np.int32)
+        teu, tev = (torch.from_numpy(a).to(cuda) for a in (eu, ev))
+        euv = puf.pack_edges(teu, tev)
+        for ne in (ec - 1, ec, ec + 3):
+            tne = torch.tensor(ne, dtype=torch.int32, device=cuda)
+            want = uf_oracle(eu, ev, ne, 300)
+            for got in (puf.uf_probe(teu, tev, tne, 300),
+                        puf.uf_serial(teu, tev, tne, 300),
+                        puf.uf_packed(euv, tne, 300),
+                        puf.uf_packed_noskip(euv, tne, 300)):
+                np.testing.assert_array_equal(got.cpu().numpy(), want,
+                                              err_msg=f"ec={ec} ne={ne}")
+
+
+def test_staged_uf_rejects_a_misaligned_edge_view(cuda):
+    """A bulk copy needs a 16-byte aligned source: an edge view 4 bytes
+    into its storage raises, and a fresh copy of it is taken."""
+    e = torch.arange(1025, dtype=torch.int32, device=cuda) % 64
+    ne = torch.tensor(1000, dtype=torch.int32, device=cuda)
+    before = puf.uf_serial.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        puf.uf_serial(e[1:], e[:1024], ne, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        puf.uf_packed(e[1:], ne, 64)
+    assert puf.uf_serial.launches == before
+    got = puf.uf_serial(e[1:].clone(), e[:1024], ne, 64)
+    assert torch.equal(got, tuf.cc_labels_ref(e[1:], e[:1024], ne, 64))
 
 
 @pytest.mark.parametrize("table", ["intra", "snp"])

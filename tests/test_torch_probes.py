@@ -15,6 +15,7 @@ taken in another order).
 
 import importlib.util
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -27,12 +28,14 @@ from jax.experimental.pallas import tpu as pltpu
 from lidar_processing_tpu_torch.kernels import probe_mosaic2 as tm2
 from lidar_processing_tpu_torch.kernels import probe_pairs as tpp
 from lidar_processing_tpu_torch.kernels import probe_uf as tpu_uf
-from lidar_processing_tpu_torch.kernels.union_find import cc_labels
+from lidar_processing_tpu_torch.kernels.union_find import (cc_labels,
+                                                           cc_labels_ref)
 from lidar_processing_tpu_torch.tools import probe_mosaic as tmos
 from lidar_processing_tpu_torch.tools import probe_mosaic2 as tmos2
 from lidar_processing_tpu_torch.tools import probe_mosaic3 as tmos3
 from lidar_processing_tpu_torch.tools import probe_uf as tprobe_uf
 from lidar_processing_tpu_torch.tools import probe_uf2 as tprobe_uf2
+from lidar_processing_tpu_torch.tools.kernel_cases import uf_graphs, uf_oracle
 
 _TOOLS = pathlib.Path(__file__).resolve().parent.parent / "tools"
 _CACHE_KEYS = ("jax_compilation_cache_dir",
@@ -84,6 +87,10 @@ def test_probe_uf_twin_matches_pallas_interpret(monkeypatch):
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
         want, tprobe_uf.scipy_labels(eu, ev, ne, S_SMALL))
+    for model in (tpu_uf.schedule_model, tpu_uf.serial_model):
+        np.testing.assert_array_equal(
+            model(eu, ev, ne, S_SMALL, *tpu_uf.VARIANTS["uf_probe"])[0],
+            want)
 
 
 @pytest.mark.parametrize("variant", ["k_v0", "k_v1", "k_v2"])
@@ -106,6 +113,13 @@ def test_probe_uf2_variants_match_pallas_interpret(variant):
            "k_v2": lambda: tpu_uf.uf_packed_noskip(euv, tne, S_SMALL)
            }[variant]()
     np.testing.assert_array_equal(got.numpy(), want)
+    name = {"k_v0": "uf_serial", "k_v1": "uf_packed",
+            "k_v2": "uf_packed_noskip"}[variant]
+    a, b = (eu, ev) if variant == "k_v0" else (
+        t.numpy() for t in tpu_uf.unpack_edges(euv))
+    for model in (tpu_uf.schedule_model, tpu_uf.serial_model):
+        np.testing.assert_array_equal(
+            model(a, b, ne, S_SMALL, *tpu_uf.VARIANTS[name])[0], want)
 
 
 def test_probe_uf2_main_takes_a_frame_edge_list():
@@ -145,6 +159,83 @@ def test_uf_wrappers_on_cpu_run_the_twin_without_counting():
                 tpu_uf.uf_packed_noskip(euv, tne, S_SMALL)):
         np.testing.assert_array_equal(got.numpy(), want)
     assert counts == [w.launches for w in wrappers]
+
+
+def _variant_edges(name, eu, ev):
+    """A variant's edges as its kernel reads them: the packed variants
+    through pack_edges / unpack_edges (ids past 2^15 change)."""
+    if not name.startswith("uf_packed"):
+        return eu, ev
+    a, b = tpu_uf.unpack_edges(tpu_uf.pack_edges(torch.from_numpy(eu),
+                                                 torch.from_numpy(ev)))
+    return a.numpy(), b.numpy()
+
+
+@pytest.mark.parametrize("name", list(tpu_uf.VARIANTS))
+def test_schedule_model_matches_twin_and_oracle_on_contract_graphs(name):
+    """The staged kernel's schedule (windows screened at their start,
+    lane 0's in-order unions, finds from prefetched parents) and the
+    serial pass give the contract's labels on every crafted graph,
+    equal to cc_labels_ref and to scipy."""
+    s_cap = 512
+    for graph, eu, ev, ne in uf_graphs(s_cap, 2048):
+        a, b = _variant_edges(name, eu, ev)
+        want = uf_oracle(a, b, ne, s_cap)
+        twin = cc_labels_ref(torch.from_numpy(a), torch.from_numpy(b),
+                             torch.tensor(ne, dtype=torch.int32), s_cap)
+        np.testing.assert_array_equal(twin.numpy(), want, err_msg=graph)
+        for model in (tpu_uf.schedule_model, tpu_uf.serial_model):
+            got = model(a, b, ne, s_cap, *tpu_uf.VARIANTS[name])[0]
+            np.testing.assert_array_equal(got, want, err_msg=graph)
+
+
+@pytest.mark.parametrize("name", ["uf_serial", "uf_packed"])
+def test_screened_edges_are_ones_the_serial_pass_skips_or_finds_joined(name):
+    """Every edge the window screen takes off lane 0 is one the serial
+    variant skips or finds already joined, on the contract graphs and the
+    two probes' graphs (small); the screen does take edges off."""
+    graphs = uf_graphs(512, 2048) + [
+        ("probe_uf", *tprobe_uf.make_inputs(S_SMALL, E_SMALL, NE_SMALL)),
+        ("probe_uf2", *tprobe_uf2.make_inputs(S_SMALL, E_SMALL, NE_SMALL))]
+    total = 0
+    for graph, eu, ev, ne in graphs:
+        a, b = _variant_edges(name, eu, ev)
+        _, screened = tpu_uf.schedule_model(a, b, ne, 512,
+                                            *tpu_uf.VARIANTS[name])
+        _, outcome = tpu_uf.serial_model(a, b, ne, 512,
+                                         *tpu_uf.VARIANTS[name])
+        bad = [j for j in screened if outcome[j] == "hooked"]
+        assert not bad, (graph, bad[:5])
+        total += len(screened)
+    assert total > 0
+
+
+def test_entries_bind_every_entry_point_of_probe_uf_cu():
+    """kernels/_build.py binds each extern "C" function of csrc/probe_uf.cu
+    with as many arguments as the source declares."""
+    from lidar_processing_tpu_torch.kernels import _build
+    src = (_build.CSRC / "probe_uf.cu").read_text()
+    decls = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
+    assert len(decls) == 4
+    entries = dict(_build._ENTRIES)
+    for name, params in decls:
+        assert name in entries, name
+        assert len(entries[name]) == len(params.split(",")), name
+    assert {n for n, _ in decls} == {f"{v}_launch" for v in tpu_uf.VARIANTS}
+
+
+def test_staged_wrappers_reject_a_misaligned_edge_view():
+    """An edge view off by 4 bytes raises before any launch (a bulk copy
+    needs a 16-byte aligned source), whatever the other array."""
+    e = torch.zeros(1025, dtype=torch.int32)
+    ne = torch.tensor(1000, dtype=torch.int32)
+    before = tpu_uf.uf_serial.launches
+    for edges in ((("eu", e[1:]), ("ev", e[:1024])),
+                  (("eu", e[:1024]), ("ev", e[1:])), (("euv", e[1:]),)):
+        with pytest.raises(ValueError, match="16-byte"):
+            tpu_uf._staged(tpu_uf.uf_serial, "uf_serial_launch", edges, ne,
+                           64)
+    assert tpu_uf.uf_serial.launches == before
 
 
 # ---- pair minima: tools/probe_mosaic.py, tools/probe_mosaic3.py ---------
