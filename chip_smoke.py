@@ -113,22 +113,35 @@ Phases (any failure raises, so the script never exits 0 after one):
      the card in use sampled by nvidia-smi during the kernel and warm
      runs, union_find beside them, and the events / profiler ratios over
      every turn, with the events a profile keeps without its warm-up
-     step; then the other probe kernels against their twins at the JAX
-     probes' own sizes (pair minima <= 4 ULP, mosaic2 A and C equal, B
-     within 1e-5 of the sum of |terms|),
-     timed the same way; mosaic2's redesigned A (gather_sum, one kernel a
-     call, both designs) and C (tile_scale) also equal to their first-port
-     versions (gather_sum_v0, tile_scale_v0) at ragged sizes, then v0,
-     new, the library call, new, v0 in turns, each with kernel ms (CUDA
-     events a call), device ms (torch.profiler), kernels a call and host
-     us a call (the host clock over 1000 calls, no synchronise in the
-     loop), and the launch path's host split; slice_sum beside
-     index_select + sum; frame 0's edge list through every union-find
-     kernel and the twin (all equal), and its small ambiguous supernode
-     pairs through the pair kernel and through _stacked_windows +
-     min_d2_planar (bit for bit), both timed; then the probe entry points
-     (tools/probe_*.main) with the launch counts reset: every probe kernel
-     must have run;
+     step; then the pair kernels (pair_min_d2_v48 / _v96, reading the
+     caller's row layout in place): equal to the twin bit for bit on the
+     JAX probes' inputs in their own layouts (and through mosaic_pairs /
+     mosaic3_pairs: one launch and one CUDA kernel a call by
+     torch.profiler) and on every crafted case of
+     tools/kernel_cases.py::pair_cases in the stacked (L = 8), row
+     (L = 128, padded) and planar layouts; a misshapen layout raises;
+     each call, the twin, and cdist + amin (the library call), timed;
+     mosaic2's A, B and C against their twins (A and C equal, B within
+     1e-5 of the sum of |terms|); the redesigned A (gather_sum, one
+     kernel a call, both designs) and C (tile_scale) also equal to their
+     first-port versions (gather_sum_v0, tile_scale_v0) at ragged sizes,
+     then v0, new, the library call, new, v0 in turns, with the launch
+     path's host split; slice_sum beside index_select + sum; frame 0's
+     edge list through every union-find kernel and the twin (all equal),
+     and its small ambiguous supernode pairs in the planar layout through
+     the pair kernel and through _stacked_windows + min_d2_planar (bit
+     for bit); where a parent tree is unpacked under build/parent (git
+     archive), its pair kernels against this tree's in turns (parent,
+     change, change, parent; tools/kernel_bench.py, each tree in a
+     process of its own, the same bits required); then the probe entry
+     points (tools/probe_*.main) with the launch counts reset: every
+     probe kernel must have run. Every kernel row of phases 14-15 is timed
+     by kernel ms (CUDA events around isolated calls), device ms
+     (torch.profiler, retried until a profile keeps every call's kernel
+     events, with their count, else "not measured" with every profile's
+     count), warm ms (events around back-to-back calls) and host us a
+     call (the host clock, no synchronise in the loop), and so is each
+     library call beside a probe kernel;
   16. no jax imported.
 
 Prints each phase's seconds, the kernels' JSON record, the card's name and
@@ -152,7 +165,12 @@ from pathlib import Path
 
 import numpy as np
 
+from lidar_processing_tpu_torch.tools.kernel_bench import (
+    HOST_CALLS, DeviceMs, cuda_ms, device_ms, fmt_ms, fmt_timing, host_us,
+    kernels_per_call, profiled, timing, warm_ms)
+
 HERE = Path(__file__).resolve().parent
+PARENT = HERE / "build" / "parent"  # an earlier commit, for pair_turns
 N_FRAMES = 8
 WARMUP_FRAMES = 1          # ReplayStream.run() warms up with one step
 CLUSTER_RANGE = (300, 600)  # io/synthetic.py full-size scene targets
@@ -167,7 +185,6 @@ CELL_CAPACITY = 128        # the cellgraph phase's cell_capacity (shipped: 64)
 NB_QUERIES = 4096          # NeighborIndex queries on frame 0
 SPATIAL_SHARDS = (8, 4)    # x-band shards of the parallel phase
 SPATIAL_BLOCK_POINTS = 131072  # the spatial step's block_points (32768)
-HOST_CALLS = 1000          # calls a host-us measurement loops over
 UF_PROFILE = 10            # calls a union-find probe's profile records
 UF_HOST_CALLS = 50         # calls its host-us measurement loops over
 SMI_MS = 20                # nvidia-smi's sampling interval beside a timing
@@ -203,64 +220,6 @@ def host_cpu() -> str:
     return f"{platform.machine()} {model}, {os.cpu_count()} cores"
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median CUDA-event time of fn() over `reps` runs, after one warmup."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def profiled(fn, reps: int, warmup: bool = True):
-    """torch.profiler's key averages (CUDA activity) of `reps` calls of
-    fn(), recorded after a warm-up step of as many calls whose events are
-    dropped: a profile without one (`warmup` False) can lose its first
-    kernel events (check_uf_probes counts them)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-    fn()
-    torch.cuda.synchronize()
-    if not warmup:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        return prof.key_averages()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 acc_events=True) as prof:
-        for _ in range(2):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return prof.key_averages()
-
-
-def device_ms(fn, reps: int = 10):
-    """Device time of one fn() call: the CUDA kernels it ran, summed as
-    torch.profiler records them, so the host's launch path between them
-    is left out (CUDA events around one call include it whenever the host
-    is slower than the card). None if the profiler saw no device work."""
-    import torch
-    total_us = sum(e.self_device_time_total for e in profiled(fn, reps)
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total_us / 1e3 / reps if total_us > 0 else None
-
-
-def fmt_ms(ms) -> str:
-    return "not measured" if ms is None else f"{ms:.4f} ms"
-
-
 def bound(n_bytes: float, n_ops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over
     the memory rate and the FP32 operations over the FP32 peak."""
@@ -268,6 +227,16 @@ def bound(n_bytes: float, n_ops: float = 0.0) -> dict:
     t_ops = n_ops / H100_FP32_PER_S * 1e3
     return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
             else {"bound_ms": t_ops, "bound_by": "operations"})
+
+
+def rank(kernel: dict, library: dict, by: str) -> str:
+    """Kernel against library by one metric of two timing() dicts."""
+    k, lib = (t[by].ms if isinstance(t[by], DeviceMs) else t[by]
+              for t in (kernel, library))
+    if k is None or lib is None:
+        return "not measured"
+    return (f"the kernel {lib / k:.2f}x under the library" if k <= lib
+            else f"the kernel {k / lib:.2f}x over the library")
 
 
 def ulp_diff(a, b) -> int:
@@ -323,9 +292,14 @@ def build_all():
         (info, secs), (ninfo, nsecs) = cuda.result(), host.result()
     log(f"build: {info.path.name} from {[p.name for p in _build._sources()]}"
         f" flags {' '.join(_build.NVCC_FLAGS)} in {secs:.2f} s")
-    for line in info.log.splitlines():
-        if "registers" in line or "smem" in line or "error" in line:
-            log(f"  nvcc: {line.strip()}")
+    entry, spill = "?", ""
+    for line in info.log.splitlines():   # ptxas -v, kernel by kernel
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line or "smem" in line or "error" in line:
+            log(f"  nvcc: {entry}: {line.strip()}; {spill}")
     march = next((line.split()[-1] for line in native.host_target(
         native._cxx()).splitlines() if line.strip().startswith("-march=")),
         "?")
@@ -352,8 +326,9 @@ def check_min_d2(device):
     from lidar_processing_tpu_torch.ops import stixel as sx
     import torch
     rng = np.random.default_rng(0)
-    worst, max_abs, ms, plain_ms, lib_ms, bound_ms = 0, 0.0, 0.0, 0.0, 0.0, 0.0
-    dev_ms = 0.0
+    worst, max_abs, plain_ms, lib_ms, bound_ms = 0, 0.0, 0.0, 0.0, 0.0
+    sums = {"kernel": 0.0, "device": 0.0, "warm": 0.0, "host": 0.0,
+            "library device": 0.0}
     for u_cap, v_cap, slots in sx._TIERS_INTRA + sx._TIERS_SNP:
         p, wu, wv = slots, u_cap + 8, v_cap + 32
         args = min_d2_inputs(rng, p, wu, wv, device)
@@ -365,24 +340,29 @@ def check_min_d2(device):
             raise AssertionError(f"min_d2 ({p},{wu},{wv}): {ulp} ULP")
         worst = max(worst, ulp)
         max_abs = max(max_abs, float(np.abs(got - want).max(initial=0.0)))
-        t_k = cuda_ms(lambda: min_d2_planar(*args))
+        t = timing(lambda: min_d2_planar(*args))
         t_p = cuda_ms(lambda: min_d2_planar_ref(*args))
-        t_l = cuda_ms(lambda: torch.cdist(u, v, compute_mode=CDIST).amin(
-            (1, 2)))
+        lib = lambda: torch.cdist(u, v, compute_mode=CDIST).amin(  # noqa
+            (1, 2))
+        t_l, d_l = cuda_ms(lib), device_ms(lib, reps=3)
         # 9 FP32 operations per (u, v) element pair: 3 sub, 3 mul, 2 add,
         # 1 min; each window float read once, P floats written
         b = bound(4 * (3 * p * (wu + wv) + p), 9 * p * wu * wv)
-        t_d = device_ms(lambda: min_d2_planar(*args))
-        ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
+        plain_ms, lib_ms = plain_ms + t_p, lib_ms + t_l
         bound_ms += b["bound_ms"]
-        dev_ms = None if dev_ms is None or t_d is None else dev_ms + t_d
-        log(f"min_d2 ({p:5d},{wu:3d},{wv:3d}): {ulp} ULP, kernel "
-            f"{t_k:.4f} ms (device {fmt_ms(t_d)}), plain {t_p:.4f} ms, "
-            f"cdist+amin {t_l:.4f} ms, bound {b['bound_ms']:.5f} ms "
+        for k, x in (*t.items(), ("library device", d_l)):
+            x = x.ms if isinstance(x, DeviceMs) else x
+            sums[k] = None if sums[k] is None or x is None else sums[k] + x
+        log(f"min_d2 ({p:5d},{wu:3d},{wv:3d}): {ulp} ULP, {fmt_timing(t)}, "
+            f"plain {t_p:.4f} ms, cdist+amin {t_l:.4f} ms (device "
+            f"{fmt_ms(d_l)}), bound {b['bound_ms']:.5f} ms "
             f"({b['bound_by']})")
-    log(f"min_d2: 12 tier shapes, max {worst} ULP; per-frame sum kernel "
-        f"{ms:.4f} ms (device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, "
-        f"cdist+amin {lib_ms:.4f} ms, bound {bound_ms:.5f} ms")
+    log(f"min_d2: 12 tier shapes, max {worst} ULP; per-frame sums: "
+        + ", ".join(f"{k} {fmt_ms(x) if k != 'host' else f'{x:.2f} us'}"
+                    for k, x in sums.items())
+        + f", plain {plain_ms:.4f} ms, cdist+amin {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms")
+    ms = sums["kernel"]
     return {"name": "min_d2", "source": f"{CSRC}/min_d2.cu",
             "replaces": "lidar_processing_tpu/kernels/min_d2.py:48",
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
@@ -459,10 +439,13 @@ def check_union_find(device, frame_edges):
                               ("plain", cc_labels_ref))}
         b = uf_bound(n_e, 8, 10240)
         rows[gname] = (t, b)
+        kernel = lambda: cc_labels(*g, 10240)  # noqa: E731
         log(f"union_find on {gname} ({n_e} edges, 10240 nodes): "
             + ", ".join(f"{k} {ms:.4f} ms (device {fmt_ms(d)})"
                         for k, (ms, d) in t.items())
-            + f", bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+            + f"; kernel warm {warm_ms(kernel):.4f} ms, host "
+            f"{host_us(kernel):.2f} us; bound {b['bound_ms']:.6f} ms "
+            f"({b['bound_by']})")
     t, b = rows["20k"]
     return ({"name": "union_find", "source": f"{CSRC}/union_find.cu",
              "replaces": "lidar_processing_tpu/kernels/union_find.py:31",
@@ -567,10 +550,13 @@ def check_tier_min_d2(device, frame_calls):
         work += w
         total["ms"] += t["kernel"][0]
         total["plain_ms"] += t["plain"][0]
+        kernel = lambda: tier_min_d2(*args)  # noqa: E731
         log(f"tier_min_d2 {name} ({int(args[4].sum())} pairs in tiers): "
             + ", ".join(f"{k} {ms:.4f} ms (device {fmt_ms(d)})"
                         for k, (ms, d) in t.items())
-            + f", bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+            + f"; kernel warm {warm_ms(kernel):.4f} ms, host "
+            f"{host_us(kernel):.2f} us; bound {b['bound_ms']:.6f} ms "
+            f"({b['bound_by']})")
     total.update(bound(*work))
     log(f"tier_min_d2 per frame (2 calls): kernel {total['ms']:.4f} ms, "
         f"plain {total['plain_ms']:.4f} ms, bound {total['bound_ms']:.6f} ms "
@@ -808,98 +794,91 @@ def check_uf_probes(device, frame_edges, smi: str) -> list:
     return records
 
 
-def check_probe_kernels(device) -> list:
-    """Each pair and mosaic2 probe kernel against its twin at the JAX
-    probe's own sizes, with times; returns their records (launches are
-    filled in later; the union-find probes are check_uf_probes')."""
+def check_pairs(device) -> list:
+    """pair_min_d2_v48 / _v96 against the twin bit for bit: on the JAX
+    probes' inputs in their own layouts (and through mosaic_pairs /
+    mosaic3_pairs, one launch each), and on every crafted case of
+    kernel_cases.pair_cases in the three layouts (stacked L = 8, rows
+    L = 128 with padding, planar); a misshapen or non-contiguous layout
+    raises; mosaic_pairs / mosaic3_pairs run one CUDA kernel a call
+    (torch.profiler). Then on the probes' inputs: the kernel on a ready
+    layout, the user call and the library call (cdist + amin over the
+    filled windows) by timing() (kernel, device, warm ms, host us), the
+    twin and the bound, ranked by device and warm ms. Returns the two
+    records."""
     import torch
     from lidar_processing_tpu_torch.kernels import probe_pairs as pp
     from lidar_processing_tpu_torch.tools import probe_mosaic, probe_mosaic3
+    from lidar_processing_tpu_torch.tools.kernel_cases import (pair_cases,
+                                                               pair_layouts)
     to = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa
     records = []
-
-    def add(name, src, replaces, err, call, plain_ms, b, lib_ms):
-        ms = cuda_ms(call)
-        records.append({"name": name, "source": f"{CSRC}/{src}",
-                        "replaces": replaces, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, **b, "library_ms": lib_ms})
-        log(f"{name}: kernel {ms:.4f} ms (device "
-            f"{fmt_ms(device_ms(call))}), plain {plain_ms:.4f} ms, library "
-            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{b['bound_ms']:.6f} ms ({b['bound_by']}), max abs err {err}")
-
-    # pair minima: tools/probe_mosaic.py (v <= 48), probe_mosaic3.py (96)
-    for name, fn, v_cap, (_, rows, *runs), lanes, replaces in (
-            ("pair_min_d2_v48", pp.pair_min_d2_v48, 48,
+    for name, fn, user, v_cap, (_, rows_np, *runs), lanes, replaces in (
+            ("pair_min_d2_v48", pp.pair_min_d2_v48,
+             lambda r, u: pp.mosaic_pairs(r, *u), 48,
              probe_mosaic.make_inputs(), 8, "tools/probe_mosaic.py:26"),
-            ("pair_min_d2_v96", pp.pair_min_d2_v96, 96,
+            ("pair_min_d2_v96", pp.pair_min_d2_v96,
+             lambda r, u: pp.mosaic3_pairs(*u, r), 96,
              probe_mosaic3.make_inputs(), 128,
              "tools/probe_mosaic3.py:57")):
-        planes = pp.row_planes(to(rows), lanes)
-        truns = tuple(map(to, runs))
-        got = fn(*planes, *truns).cpu().numpy()
-        want = pp.pair_min_d2_ref(*planes, *truns, v_cap).cpu().numpy()
-        ulp = ulp_diff(got, want)
-        if ulp > 4:
-            raise AssertionError(f"{name}: {ulp} ULP from the twin")
-        log(f"{name}: {len(got)} pairs, {ulp} ULP from the twin")
+        rows, truns = to(rows_np), tuple(map(to, runs))
+        planes = pp.row_planes(rows, lanes)
+        want = pp.pair_min_d2_ref(*planes, *truns, v_cap)
+        calls = {
+            "kernel": lambda: fn(rows, lanes, *truns),
+            "user call": lambda: user(rows, truns)}
+        before = fn.launches
+        for call, c in calls.items():
+            if not torch.equal(c(), want):
+                raise AssertionError(f"{name} {call}: differs from the twin")
+        if fn.launches != before + len(calls):
+            raise AssertionError(f"{name}: not one launch a call")
+        n_cases = 0
+        for case, xyz, *cruns in pair_cases(v_cap):
+            cruns = tuple(map(to, cruns))
+            for layout, (points, ln, pl_) in pair_layouts(xyz).items():
+                w = pp.pair_min_d2_ref(*to(pl_), *cruns, v_cap)
+                if not torch.equal(fn(to(points), ln, *cruns), w):
+                    raise AssertionError(f"{name} on {case}, {layout}: "
+                                         f"differs")
+                n_cases += 1
+        for bad in (rows[:, :-1], rows.reshape(-1),
+                    torch.cat([rows, rows], 1)[:, ::2]):
+            try:
+                fn(bad, lanes, *truns)
+                raise AssertionError(f"{name} took a layout "
+                                     f"{tuple(bad.shape)}")
+            except ValueError:
+                pass
+        seen = kernels_per_call(calls["user call"])
+        if list(seen.values()) != [1.0]:
+            raise AssertionError(f"{name}: the user call ran {seen}")
+        log(f"{name}: {len(want)} pairs == the twin bit for bit (and the "
+            f"user call: one launch and one CUDA kernel a call, "
+            f"{next(iter(seen))}); {n_cases} crafted cases x "
+            f"layouts == the twin; a misshapen layout raises")
         # the library yardstick: cdist + amin over the filled windows
         u, v = (torch.stack([pp.gather_windows(a, st, cn, cap, fill)
                              for a in planes], -1)
                 for st, cn, cap, fill in ((*truns[:2], pp.U_CAP, 1.0e9),
                                           (*truns[2:], v_cap, -1.0e9)))
-        add(name, "probe_pairs.cu", replaces,
-            float(np.abs(got - want).max()), lambda: fn(*planes, *truns),
-            cuda_ms(lambda: pp.pair_min_d2_ref(*planes, *truns, v_cap)),
-            pair_bound(*runs, v_cap, planes[0].shape[0]),
-            cuda_ms(lambda: torch.cdist(u, v, compute_mode=CDIST).amin(
-                (1, 2))))
-
-    records += check_mosaic2(device)
+        t = {call: timing(c) for call, c in calls.items()}
+        t_lib = timing(lambda: torch.cdist(u, v, compute_mode=CDIST).amin(
+            (1, 2)), calls=50)
+        plain = cuda_ms(lambda: pp.pair_min_d2_ref(*planes, *truns, v_cap))
+        b = pair_bound(*runs, v_cap, planes[0].shape[0])
+        for call, tc in t.items():
+            log(f"  {name} {call}: {fmt_timing(tc)}")
+        log(f"  {name} library cdist+amin: {fmt_timing(t_lib)}; plain "
+            f"{plain:.4f} ms; bound {b['bound_ms']:.6f} ms "
+            f"({b['bound_by']}); by device ms "
+            f"{rank(t['kernel'], t_lib, 'device')}, by warm ms "
+            f"{rank(t['kernel'], t_lib, 'warm')}")
+        records.append({"name": name, "source": f"{CSRC}/probe_pairs.cu",
+                        "replaces": replaces, "max_abs_err": 0.0,
+                        "ms": t["kernel"]["kernel"], "plain_ms": plain, **b,
+                        "library_ms": t_lib["kernel"]})
     return records
-
-
-def host_us(fn, calls: int = HOST_CALLS) -> float:
-    """Host microseconds a call: the host clock over `calls` calls with no
-    synchronise in the loop (one after it, outside the time)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = (time.perf_counter() - t0) * 1e6 / calls
-    torch.cuda.synchronize()
-    return us
-
-
-def warm_ms(fn, calls: int = HOST_CALLS) -> float:
-    """ms a call in a warm back-to-back run: CUDA events around `calls`
-    calls (cuda_ms times one call from an idle card and a cold host)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
-
-
-def kernels_per_call(fn, reps: int = 5, tries: int = 5) -> dict:
-    """{kernel name: launches a call} of fn(), as torch.profiler records
-    them (device work only): the most of `tries` profiles of `reps` calls
-    each, should a profile still drop a share of its events."""
-    import torch
-    most = {}
-    for _ in range(tries):
-        for e in profiled(fn, reps):
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                most[e.key] = max(most.get(e.key, 0.0), e.count / reps)
-    return most
 
 
 def launch_split(idx, val, x) -> str:
@@ -999,7 +978,9 @@ def check_mosaic2(device) -> list:
             t.setdefault(who, []).append(
                 (cuda_ms(fn), device_ms(fn), host_us(fn), warm_ms(fn)))
         timed[name] = {who: tuple(
-            None if None in v else statistics.mean(v) for v in zip(*rows))
+            None if None in v else statistics.mean(v) for v in (
+                [x.ms if isinstance(x, DeviceMs) else x for x in col]
+                for col in zip(*rows)))
             for who, rows in t.items()}
         kpc = {who: sum(kernels_per_call(fn).values()) for who, fn in
                (("new", new), ("v0", v0), ("library", lib))}
@@ -1051,22 +1032,22 @@ def check_mosaic2(device) -> list:
     # the library yardstick's row indices, made before timing
     rows = (torch.clamp(off, 0, planes.shape[0] - 2).long()[:, None]
             + torch.arange(2, device=device)).reshape(-1)
-    ms, plain = cuda_ms(lambda: m2.slice_sum(off, planes)), cuda_ms(
-        lambda: m2.slice_sum_ref(off, planes))
-    lib = cuda_ms(lambda: planes.index_select(0, rows).sum())
+    kernel = lambda: m2.slice_sum(off, planes)  # noqa: E731
+    library = lambda: planes.index_select(0, rows).sum()  # noqa: E731
+    t, t_lib = timing(kernel), timing(library)
+    plain = cuda_ms(lambda: m2.slice_sum_ref(off, planes))
     b = bound(4 * (off.numel() + planes.numel()) + 4,
               2 * planes.shape[1] * n)
     records.append({"name": "slice_sum",
                     "source": f"{CSRC}/probe_mosaic2.cu",
                     "replaces": "tools/probe_mosaic2.py:60",
-                    "max_abs_err": abs(got - want), "ms": ms,
-                    "plain_ms": plain, **b, "library_ms": lib})
-    log(f"slice_sum: kernel {ms:.4f} ms (device "
-        f"{fmt_ms(device_ms(lambda: m2.slice_sum(off, planes)))}, host "
-        f"{host_us(lambda: m2.slice_sum(off, planes)):.2f} us), plain "
-        f"{plain:.4f} ms, library index_select+sum {lib:.4f} ms, bound "
-        f"{b['bound_ms']:.6f} ms ({b['bound_by']}), max abs err "
-        f"{abs(got - want)}")
+                    "max_abs_err": abs(got - want), "ms": t["kernel"],
+                    "plain_ms": plain, **b, "library_ms": t_lib["kernel"]})
+    log(f"slice_sum: {fmt_timing(t)}; plain {plain:.4f} ms; library "
+        f"index_select+sum {fmt_timing(t_lib)}; bound "
+        f"{b['bound_ms']:.6f} ms ({b['bound_by']}); by device ms "
+        f"{rank(t, t_lib, 'device')}, by warm ms {rank(t, t_lib, 'warm')}; "
+        f"max abs err {abs(got - want)}")
     return records
 
 
@@ -1180,14 +1161,17 @@ def check_real_frame(device, res, dbg):
     """Frame 0's cluster_debug output: its supernode edge list through
     every union-find variant (all equal to the twin) and its ambiguous
     supernode pairs with u <= 8 and v <= 96 points (u the smaller side)
-    through the pair kernel and through the clustering path's old
-    _stacked_windows + min_d2_planar (bit for bit). Returns the edge list
-    for the probe path."""
+    in the planar (1, 3n) layout through the pair kernel and through the
+    clustering path's old _stacked_windows
+    + min_d2_planar (bit for bit), each by timing(). Returns the edge list
+    for the probe path and (points (n, 3), us, uc, vs, vc) of the pairs
+    as numpy, for pair_turns."""
     import torch
     from lidar_processing_tpu_torch.config import DEFAULT_CONFIG as cfg
     from lidar_processing_tpu_torch.kernels import probe_uf as puf
     from lidar_processing_tpu_torch.kernels.min_d2 import min_d2_planar
-    from lidar_processing_tpu_torch.kernels.probe_pairs import pair_min_d2_v96
+    from lidar_processing_tpu_torch.kernels.probe_pairs import (
+        pair_min_d2_v96, planar)
     from lidar_processing_tpu_torch.kernels.tier_min_d2 import (
         F_BIG, _stacked_windows)
     from lidar_processing_tpu_torch.kernels.union_find import (cc_labels,
@@ -1226,29 +1210,47 @@ def check_real_frame(device, res, dbg):
     if n_pairs == 0:
         raise AssertionError("frame 0 has no small ambiguous pairs")
     sp_xyz = dbg["sp"].xyz
-    planes = tuple(sp_xyz.T.contiguous())
+    points, lanes = planar(sp_xyz), sp_xyz.shape[0]
 
     def windows():
         pu_w = _stacked_windows(sp_xyz, runs[0], runs[1], F_BIG, 8, sr=8)
         pv_w = _stacked_windows(sp_xyz, runs[2], runs[3], -F_BIG, 96, sr=32)
         return min_d2_planar(*pu_w, *pv_w)
 
-    got = pair_min_d2_v96(*planes, *runs)
+    calls = {"pair kernel": lambda: pair_min_d2_v96(points, lanes, *runs)}
     want = windows()
-    if not torch.equal(got, want):
-        raise AssertionError(f"frame 0 pairs: {int((got != want).sum())} "
-                             f"differ from _stacked_windows + min_d2_planar")
-    kernel = lambda: pair_min_d2_v96(*planes, *runs)  # noqa: E731
-    t_k, t_w = cuda_ms(kernel), cuda_ms(windows)
-    b = pair_bound(*(t.cpu().numpy() for t in runs), 96, sp_xyz.shape[0])
+    for call, fn in calls.items():
+        got = fn()
+        if not torch.equal(got, want):
+            raise AssertionError(f"frame 0 pairs, {call}: "
+                                 f"{int((got != want).sum())} differ from "
+                                 f"_stacked_windows + min_d2_planar")
+    b = pair_bound(*(t.cpu().numpy() for t in runs), 96, lanes)
     log(f"frame 0 small ambiguous pairs: {n_pairs} of {int(amb.sum())} "
-        f"(u <= 8, v <= 96), {int((runs[1] * runs[3]).sum())} point pairs; "
-        f"pair kernel == _stacked_windows + min_d2_planar bit for bit; "
-        f"pair kernel {t_k:.4f} ms (device {fmt_ms(device_ms(kernel))}), "
-        f"windows + min_d2 {t_w:.4f} ms (device "
-        f"{fmt_ms(device_ms(windows))}), bound {b['bound_ms']:.6f} ms "
-        f"({b['bound_by']})")
-    return eu, ev, ne
+        f"(u <= 8, v <= 96), {int((runs[1] * runs[3]).sum())} point pairs, "
+        f"the planar (1, 3n) layout of {lanes} points; pair kernel == "
+        f"_stacked_windows + min_d2_planar bit for bit; bound {b['bound_ms']:.6f} ms ({b['bound_by']})")
+    for call, fn in (*calls.items(), ("windows + min_d2", windows)):
+        log(f"  {call}: {fmt_timing(timing(fn))}")
+    frame_pairs = (sp_xyz.cpu().numpy(),
+                   *(t.cpu().numpy() for t in runs))
+    return (eu, ev, ne), frame_pairs
+
+
+def pair_turns(frame_pairs, smi: str) -> None:
+    """The pair kernels of a parent tree unpacked under build/parent (a
+    `git archive` of an earlier commit) against this tree's, in turns
+    (parent, change, change, parent; tools/kernel_bench.py), on the JAX
+    probes' inputs and frame 0's small ambiguous pairs. Skipped without
+    a parent tree."""
+    from lidar_processing_tpu_torch.tools import kernel_bench
+    if not (PARENT / "lidar_processing_tpu_torch").is_dir():
+        log(f"pair turns: no parent tree under {PARENT.relative_to(HERE)}; "
+            f"skipped")
+        return
+    kernel_bench.run_turns(
+        [PARENT, HERE], kernel_bench.pair_inputs(frame_pairs), turns=2,
+        log=lambda m: log(f"pair turns ({smi}): {m}"))
 
 
 PROBE_KERNELS = ("uf_probe", "uf_serial", "uf_packed", "uf_packed_noskip",
@@ -1798,9 +1800,10 @@ def check_batched_kernels(calls) -> None:
             log(f"{name} B={frames} (frames 0-{frames - 1}'s call {i}): one "
                 f"launch == {frames} single launches == the batched twin, "
                 f"bit for bit; one launch {t[0]:.4f} ms (device "
-                f"{fmt_ms(t[1])}), {frames} single launches {t1[0]:.4f} ms "
-                f"(device {fmt_ms(t1[1])}), bound {b_['bound_ms']:.6f} ms "
-                f"({b_['bound_by']})")
+                f"{fmt_ms(t[1])}, warm {warm_ms(lambda: fn(*args)):.4f} ms, "
+                f"host {host_us(lambda: fn(*args)):.2f} us), {frames} single "
+                f"launches {t1[0]:.4f} ms (device {fmt_ms(t1[1])}), bound "
+                f"{b_['bound_ms']:.6f} ms ({b_['bound_by']})")
 
 
 def log_step_kernels(stream) -> dict:
@@ -2460,9 +2463,10 @@ def main() -> None:
         check_batched_kernels(batched_calls)
     with phase("probes"):
         kernels += check_uf_probes(device, edges, smi)
-        kernels += check_probe_kernels(device)
-        probe_launches = run_probe_path(device, check_real_frame(device, res,
-                                                                 dbg))
+        kernels += check_pairs(device) + check_mosaic2(device)
+        frame_edges, frame_pairs = check_real_frame(device, res, dbg)
+        pair_turns(frame_pairs, smi)
+        probe_launches = run_probe_path(device, frame_edges)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

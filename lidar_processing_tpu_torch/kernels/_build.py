@@ -43,8 +43,8 @@ _ENTRIES = (
     ("uf_serial_launch", [_P] * 4 + [_I, _I, _P]),
     ("uf_packed_launch", [_P] * 3 + [_I, _I, _P]),
     ("uf_packed_noskip_launch", [_P] * 3 + [_I, _I, _P]),
-    ("pair_min_d2_v48_launch", [_P] * 3 + [_I] + [_P] * 5 + [_I, _P]),
-    ("pair_min_d2_v96_launch", [_P] * 3 + [_I] + [_P] * 5 + [_I, _P]),
+    ("pair_min_d2_v48_launch", [_P, _I, _I] + [_P] * 5 + [_I, _P]),
+    ("pair_min_d2_v96_launch", [_P, _I, _I] + [_P] * 5 + [_I, _P]),
     ("gather_sum_launch", [_P, _P, _I, _I, _P, _I, _P]),
     ("gather_sum_v0_launch", [_P, _P, _I, _I, _P, _P, _P]),
     ("slice_sum_launch", [_P, _P, _I, _I, _I, _P, _P, _P]),

@@ -11,7 +11,11 @@ chip_smoke.py:
   exact-test pass (kernels/tier_min_d2.py): every slot full, tiers that
   overflow their slots (so a later tier's slice start clamps), sparse
   tiers, empty sides, counts beyond the caps, runs that end at the
-  buffer's last point and runs past it.
+  buffer's last point and runs past it;
+- ``pair_cases`` and ``pair_layouts``: runs for the pair-minimum probe
+  kernels (kernels/probe_pairs.py; u <= 8, v <= v_cap points) at their
+  contract's edges, and one point array in the three row layouts the
+  kernels read in place.
 """
 
 from __future__ import annotations
@@ -100,3 +104,61 @@ def tier_cases(tiers, n: int = 4096, seed: int = 0):
                     _descriptors(rng, length, n), starts.astype(np.int32),
                     n_in.astype(np.int32)))
     return out
+
+
+def pair_cases(v_cap: int, n: int = 1024, p: int = 64, seed: int = 0):
+    """[(name, xyz, us, uc, vs, vc)] for the pair kernels: xyz (n, 3) f32
+    (a random walk, so runs near in index are near in space; in "fills
+    win", points on the scale of the +-1e9 fills), and (p,) int32 runs:
+    empty sides, negative counts, counts past the caps, runs that reach
+    the last point or run past it, negative starts that clamp to point 0,
+    and fill rows or columns that win the min."""
+    rng = np.random.default_rng(seed)
+    walk = np.cumsum(rng.normal(0.0, 0.08, (n, 3)), 0).astype(np.float32)
+
+    def runs(cap, lo=0, hi=None):
+        count = rng.integers(lo, cap + 1 if hi is None else hi, p)
+        return rng.integers(0, n - cap, p), count
+
+    def case(name, u, v, xyz=walk):
+        out.append((name, xyz, *(a.astype(np.int32) for a in (*u, *v))))
+
+    out = []
+    case("random", runs(8), runs(v_cap))
+    case("empty u", runs(8, 0, 1), runs(v_cap))
+    case("empty v", runs(8), runs(v_cap, 0, 1))
+    case("both empty", runs(8, 0, 1), runs(v_cap, 0, 1))
+    case("negative counts", runs(8, -9, 9), runs(v_cap, -3 * v_cap, 0))
+    case("past the caps", runs(8, 9, 64), runs(v_cap, v_cap + 1, 4 * v_cap))
+    (us, uc), (vs, vc) = runs(8), runs(v_cap)
+    us[::2], vs[1::2] = n - uc[::2], n - vc[1::2]     # end at point n - 1
+    us[1::4], vs[::4] = n - 3, n - rng.integers(1, 8, len(vs[::4]))  # past
+    case("last point", (us, uc), (vs, vc))
+    (us, uc), (vs, vc) = runs(8), runs(v_cap)
+    us[::2], vs[1::2] = -rng.integers(1, 9, len(us[::2])), -rng.integers(
+        1, 2 * v_cap, len(vs[1::2]))
+    case("negative starts", (us, uc), (vs, vc))
+    # a third of the points near +1e9, a third near -1e9 (the fills'
+    # scale), a third near 0: a fill row or column wins where a run holds
+    # a point near the other side's fill
+    big = np.float32(1.0e9) * rng.choice([-1.0, 0.0, 1.0], (n, 1))
+    near = (big + rng.normal(0.0, 256.0, (n, 3))).astype(np.float32)
+    case("fills win", runs(8, 0, 9), runs(v_cap, 0, v_cap + 1), near)
+    return out
+
+
+def pair_layouts(xyz: np.ndarray, pad_rows: int = 16):
+    """{name: (points, lanes, planes)} for one (n, 3) f32 point array
+    (n a multiple of 128): probe_mosaic's (n/8, 24) stacked view (L = 8),
+    probe_mosaic3's (n/128 + pad_rows, 384) rows with zero padding rows
+    (L = 128), and the planar (1, 3n) view of a (3, n) array (L = n);
+    planes (3, R * L) are each layout's x/y/z planes, padding included."""
+    n = xyz.shape[0]
+    planes = np.ascontiguousarray(xyz.T, dtype=np.float32)
+    padded = np.concatenate([planes, np.zeros((3, 128 * pad_rows),
+                                              np.float32)], 1)
+    rows = lambda lanes, pl: np.concatenate(  # noqa: E731
+        [pl[a].reshape(-1, lanes) for a in range(3)], 1)
+    return {"stacked (L = 8)": (rows(8, planes), 8, planes),
+            "rows (L = 128)": (rows(128, padded), 128, padded),
+            "planar (L = n)": (planes.reshape(1, -1), n, planes)}

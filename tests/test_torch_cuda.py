@@ -269,16 +269,39 @@ def test_probe_union_find_kernels_match_twin(cuda):
 
 
 def test_pair_kernels_match_twin(cuda):
+    """Both pair kernels equal the twin bit for bit: on the JAX probes'
+    inputs in their own layouts and on every crafted case of
+    tools/kernel_cases.py::pair_cases in the three layouts; mosaic_pairs /
+    mosaic3_pairs launch once a call; a misshapen or non-contiguous
+    layout raises."""
     from lidar_processing_tpu_torch.kernels import probe_pairs as pp
     from lidar_processing_tpu_torch.tools import probe_mosaic, probe_mosaic3
-    for fn, v_cap, (_, rows, *runs), lanes in (
-            (pp.pair_min_d2_v48, 48, probe_mosaic.make_inputs(), 8),
-            (pp.pair_min_d2_v96, 96, probe_mosaic3.make_inputs(), 128)):
-        planes = pp.row_planes(torch.from_numpy(rows).to(cuda), lanes)
-        runs = [torch.from_numpy(a).to(cuda) for a in runs]
-        got = fn(*planes, *runs).cpu().numpy()
-        want = pp.pair_min_d2_ref(*planes, *runs, v_cap).cpu().numpy()
-        assert _ulp(got, want) <= 4
+    from lidar_processing_tpu_torch.tools.kernel_cases import (pair_cases,
+                                                               pair_layouts)
+    to = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    for fn, v_cap, user, (_, rows, *runs), lanes in (
+            (pp.pair_min_d2_v48, 48, lambda r, u: pp.mosaic_pairs(r, *u),
+             probe_mosaic.make_inputs(), 8),
+            (pp.pair_min_d2_v96, 96, lambda r, u: pp.mosaic3_pairs(*u, r),
+             probe_mosaic3.make_inputs(), 128)):
+        rows, runs = to(rows), [to(a) for a in runs]
+        want = pp.pair_min_d2_ref(*pp.row_planes(rows, lanes), *runs, v_cap)
+        before = fn.launches
+        assert torch.equal(fn(rows, lanes, *runs), want)
+        assert torch.equal(user(rows, runs), want)
+        assert fn.launches == before + 2
+        for name, xyz, *case in pair_cases(v_cap):
+            case = [to(a) for a in case]
+            for layout, (points, ln, planes) in pair_layouts(xyz).items():
+                want = pp.pair_min_d2_ref(*to(planes), *case, v_cap)
+                got = fn(to(points), ln, *case)
+                assert torch.equal(got, want), (v_cap, name, layout)
+        for bad in (rows[:, :-1], rows.T.contiguous(), rows[:, ::2],
+                    rows.reshape(-1)):
+            with pytest.raises(ValueError):
+                fn(bad, lanes, *runs)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(torch.cat([rows, rows], 1)[:, ::2], lanes, *runs)
 
 
 def test_mosaic2_kernels_match_twins(cuda):

@@ -8,7 +8,9 @@ run their plain twins (a CUDA tensor would launch csrc/probe_*.cu;
 tests/test_torch_cuda.py holds those against the twins on the card).
 
 Tolerances: union-find labels equal (the labelling is canonical); pair
-minima within 4 ULP (tests/test_kernels.py's criterion for min_d2);
+minima within 4 ULP of the Pallas kernels in interpret mode
+(tests/test_kernels.py's criterion for min_d2), and the port's trimmed
+window, its layouts and its twin equal bit for bit;
 mosaic2 A and C equal, B within 1e-5 of the sum of |terms| (f32 sums
 taken in another order).
 """
@@ -30,6 +32,7 @@ from lidar_processing_tpu_torch.kernels import probe_pairs as tpp
 from lidar_processing_tpu_torch.kernels import probe_uf as tpu_uf
 from lidar_processing_tpu_torch.kernels.union_find import (cc_labels,
                                                            cc_labels_ref)
+from lidar_processing_tpu_torch.tools import kernel_cases
 from lidar_processing_tpu_torch.tools import probe_mosaic as tmos
 from lidar_processing_tpu_torch.tools import probe_mosaic2 as tmos2
 from lidar_processing_tpu_torch.tools import probe_mosaic3 as tmos3
@@ -296,11 +299,119 @@ def test_pair_twin_equals_stacked_windows_and_min_d2():
     vs = torch.from_numpy(rng.integers(0, n - 96, p).astype(np.int32))
     vc = torch.from_numpy(rng.integers(0, 120, p).astype(np.int32))
     us[0], uc[0], vs[1], vc[1] = n - 8, 8, n - 96, 96
-    got = tpp.pair_min_d2_v96(*xyz.T.contiguous(), us, uc, vs, vc)
+    got = tpp.pair_min_d2_v96(tpp.planar(xyz), n, us, uc, vs, vc)
     pu = _stacked_windows(xyz, us, uc, 1.0e9, 8, sr=8)
     pv = _stacked_windows(xyz, vs, vc, -1.0e9, 96, sr=32)
     want = min_d2_planar_ref(*pu, *pv)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def _fma32(a, b, c):
+    """Correctly rounded f32 fma(a, b, c), from float64: the product of
+    two f32 is exact there, TwoSum gives the sum's error exactly, and only
+    a sum that lands on an f32 midpoint needs that error to round."""
+    a, b, c = (np.asarray(t, np.float32).astype(np.float64)
+               for t in (a, b, c))
+    prod = a * b
+    s = prod + c
+    t = s - prod
+    err = (prod - (s - t)) + (c - t)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(s > r, np.float32(np.inf),
+                                     np.float32(-np.inf)))
+    mid = (r != s) & ((r.astype(np.float64) + other) / 2 == s)
+    fix = np.where(err > 0, np.maximum(r, other), np.minimum(r, other))
+    return np.where(mid & (err != 0), fix, r)
+
+
+def _trimmed_model(planes, us, uc, vs, vc, v_cap, fills=True):
+    """The kernel's trimmed window in numpy: the real points of each run
+    plus one fill row (+1e9) and one fill column (-1e9) where the run is
+    short of its cap, d² = fma(dz, dz, fma(dx, dx, dy·dy)). fills=False:
+    the real points only (inf for an empty side)."""
+    n = planes.shape[1]
+    out = np.empty(len(us), np.float32)
+    for p in range(len(us)):
+        sides = []
+        for st, cnt, cap, fill in ((us[p], uc[p], tpp.U_CAP, 1.0e9),
+                                   (vs[p], vc[p], v_cap, -1.0e9)):
+            k = min(max(int(cnt), 0), cap)
+            pts = planes[:, np.clip(int(st) + np.arange(k), 0, n - 1)]
+            if fills and k < cap:
+                pts = np.concatenate([pts, np.full((3, 1), fill,
+                                                   np.float32)], 1)
+            sides.append(pts)
+        d = sides[0][:, :, None] - sides[1][:, None, :]
+        d2 = _fma32(d[2], d[2], _fma32(d[0], d[0], d[1] * d[1]))
+        out[p] = d2.min(initial=np.inf)
+    return out
+
+
+_PAIR_CASES = {v: kernel_cases.pair_cases(v) for v in (48, 96)}
+
+
+@pytest.mark.parametrize("v_cap,case", [
+    (v, i) for v in (48, 96) for i in range(len(_PAIR_CASES[v]))],
+    ids=lambda a: str(a))
+def test_trimmed_window_equals_pair_twin(v_cap, case):
+    """The kernel's trim (real points, one fill row, one fill column)
+    equals the twin's full 8 x v_cap window bit for bit on the crafted
+    cases (tools/kernel_cases.py::pair_cases); in "fills win" a fill row
+    or column does win on some pairs."""
+    name, xyz, *runs = _PAIR_CASES[v_cap][case]
+    planes = np.ascontiguousarray(xyz.T)
+    want = tpp.pair_min_d2_ref(*torch.from_numpy(planes),
+                               *map(torch.from_numpy, runs), v_cap).numpy()
+    got = _trimmed_model(planes, *runs, v_cap)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32),
+                                  err_msg=name)
+    if name == "fills win":
+        real = _trimmed_model(planes, *runs, v_cap, fills=False)
+        assert (real != want).sum() >= 4, name
+
+
+@pytest.mark.parametrize("layout", list(kernel_cases.pair_layouts(
+    np.zeros((128, 3), np.float32))))
+def test_pair_wrappers_read_each_layout_as_its_planes(layout):
+    """The wrappers on a CPU layout (L = 8, L = 128 with padding rows,
+    planar (1, 3n)) equal the twin on that layout's planes, built apart
+    from the wrapper, bit for bit; runs that run past the last point
+    clamp into the padding rows where the layout has them."""
+    for v_cap, fn in ((48, tpp.pair_min_d2_v48), (96, tpp.pair_min_d2_v96)):
+        for name, xyz, *runs in (_PAIR_CASES[v_cap][i] for i in (0, 6, 7)):
+            points, lanes, planes = kernel_cases.pair_layouts(xyz)[layout]
+            runs = [torch.from_numpy(a) for a in runs]
+            before = fn.launches
+            got = fn(torch.from_numpy(points), lanes, *runs)
+            want = tpp.pair_min_d2_ref(*torch.from_numpy(planes), *runs,
+                                       v_cap)
+            assert fn.launches == before
+            np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                          want.numpy().view(np.int32),
+                                          err_msg=f"{layout} {name}")
+
+
+@pytest.mark.parametrize("shape,lanes", [((16, 25), 8), ((0, 24), 8),
+                                         ((384,), 128), ((2, 24), 0)])
+def test_pair_wrappers_reject_a_misshapen_layout(shape, lanes):
+    pts = torch.zeros(shape)
+    runs = [torch.zeros(4, dtype=torch.int32)] * 4
+    for fn in (tpp.pair_min_d2_v48, tpp.pair_min_d2_v96):
+        with pytest.raises(ValueError, match="lanes"):
+            fn(pts, lanes, *runs)
+
+
+def test_entries_bind_every_entry_point_of_probe_pairs_cu():
+    """kernels/_build.py binds each extern "C" function of
+    csrc/probe_pairs.cu with as many arguments as the source declares."""
+    from lidar_processing_tpu_torch.kernels import _build
+    src = (_build.CSRC / "probe_pairs.cu").read_text()
+    decls = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
+    assert {n for n, _ in decls} == {"pair_min_d2_v48_launch",
+                                     "pair_min_d2_v96_launch"}
+    entries = dict(_build._ENTRIES)
+    for name, params in decls:
+        assert len(entries[name]) == len(params.split(",")), name
 
 
 def test_probe_mosaic_mains_check_against_numpy():
