@@ -121,19 +121,25 @@ Phases (any failure raises, so the script never exits 0 after one):
      tools/kernel_cases.py::pair_cases in the stacked (L = 8), row
      (L = 128, padded) and planar layouts; a misshapen layout raises;
      each call, the twin, and cdist + amin (the library call), timed;
-     mosaic2's A, B and C against their twins (A and C equal, B within
-     1e-5 of the sum of |terms|); the redesigned A (gather_sum, one
-     kernel a call, both designs) and C (tile_scale) also equal to their
-     first-port versions (gather_sum_v0, tile_scale_v0) at ragged sizes,
-     then v0, new, the library call, new, v0 in turns, with the launch
-     path's host split; slice_sum beside index_select + sum; frame 0's
+     mosaic2's A (gather_sum, one kernel a call, both designs) and C
+     (tile_scale) equal to their twins at the probe's size and ragged
+     ones; B (slice_sum) bit for bit its numpy order model for the grid
+     the wrapper reports and within 1e-5 of the sum of |terms| of the
+     twin on every case of kernel_cases.py::slice_cases (n 16384 / 16383
+     / 1 / 0 x W 384 / 383 / 1 x R 2 / 640, clamped offsets), the same
+     bits on 3 calls and on two streams (a workspace each), a misaligned
+     view raising, one launch and one CUDA kernel a call; then each of
+     the three, its library call (take + sum, mul, index_select + sum),
+     and it again in turns, with the launch path's host split; frame 0's
      edge list through every union-find kernel and the twin (all equal),
      and its small ambiguous supernode pairs in the planar layout through
      the pair kernel and through _stacked_windows + min_d2_planar (bit
      for bit); where a parent tree is unpacked under build/parent (git
-     archive), its pair kernels against this tree's in turns (parent,
-     change, change, parent; tools/kernel_bench.py, each tree in a
-     process of its own, the same bits required); then the probe entry
+     archive), its pair kernels and slice_sum against this tree's in
+     turns (parent, change, change, parent; tools/kernel_bench.py, each
+     tree in a process of its own; the same pair minima in every tree,
+     and each tree's slice_sum the same bits in every run and within
+     1e-5 of the sum of |terms|); then the probe entry
      points (tools/probe_*.main) with the launch counts reset: every
      probe kernel must have run. Every kernel row of phases 14-15 is timed
      by kernel ms (CUDA events around isolated calls), device ms
@@ -170,7 +176,7 @@ from lidar_processing_tpu_torch.tools.kernel_bench import (
     kernels_per_call, profiled, timing, warm_ms)
 
 HERE = Path(__file__).resolve().parent
-PARENT = HERE / "build" / "parent"  # an earlier commit, for pair_turns
+PARENT = HERE / "build" / "parent"  # an earlier commit, for parent_turns
 N_FRAMES = 8
 WARMUP_FRAMES = 1          # ReplayStream.run() warms up with one step
 CLUSTER_RANGE = (300, 600)  # io/synthetic.py full-size scene targets
@@ -882,17 +888,15 @@ def check_pairs(device) -> list:
 
 
 def launch_split(idx, val, x) -> str:
-    """Host microseconds of each step of _build.launch's path, and of
-    launch_v0's steps it dropped, over HOST_CALLS calls each."""
+    """Host microseconds of each step of _build.launch's path, over
+    HOST_CALLS calls each."""
     import torch
     from lidar_processing_tpu_torch.kernels import _build
     dev = x.device
-    out = torch.empty((x.shape[0] // 128, 128), dtype=torch.float32,
-                      device=dev)
+    out = x.new_empty((x.shape[0] // 128, 128))
     ptr, optr, n = x.data_ptr(), out.data_ptr(), x.shape[0]
     c_fn = _build._BOUND["tile_scale_launch"]
     stream = torch._C._cuda_getCurrentRawStream
-    v0_fn = _build.library().tile_scale_launch
 
     def guard():
         with torch.cuda.device(dev):
@@ -907,32 +911,88 @@ def launch_split(idx, val, x) -> str:
                 "gather_sum", ("idx", idx, torch.int32, 1),
                 ("val", val, torch.int32, 1)), val.shape[0],
             idx.data_ptr() % 16),
-        "allocation (v0: torch.empty)": lambda: torch.empty(
-            (n // 128, 128), dtype=torch.float32, device=dev),
-        "allocation (now: new_empty)": lambda: x.new_empty((n // 128, 128)),
+        "allocation (new_empty)": lambda: x.new_empty((n // 128, 128)),
         "current device": torch._C._cuda_getDevice,
         "stream read": lambda: stream(0),
         "ctypes call, GIL kept (a launch)": lambda: c_fn(ptr, optr, n,
                                                          stream(0)),
-        "v0: ctypes call, GIL released (a launch)": lambda: v0_fn(
-            ptr, optr, n, stream(0)),
-        "device guard (v0: every call; now: only off the current device)":
-            guard,
-        "v0: Stream object": lambda: torch.cuda.current_stream(
-            dev).cuda_stream,
-        "v0: getattr on the CDLL": lambda: getattr(_build.library(),
-                                                   "tile_scale_launch"),
+        "device guard (entered only off the current device)": guard,
     }
     return ", ".join(f"{k} {host_us(f):.2f}" for k, f in steps.items())
 
 
+def check_slice_sum(device) -> None:
+    """slice_sum against its order model bit for bit (for the grid the
+    wrapper reports for each n) and within 1e-5 of the sum of |terms| of the twin on
+    every case of tools/kernel_cases.py::slice_cases; the same bits on 3
+    calls and on two streams, each with its own workspace; a misaligned
+    planes view raising; one launch and one CUDA kernel a call."""
+    import torch
+    from lidar_processing_tpu_torch.kernels import probe_mosaic2 as m2
+    from lidar_processing_tpu_torch.tools import probe_mosaic2
+    from lidar_processing_tpu_torch.tools.kernel_cases import slice_cases
+    to = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa
+    grids, worst = set(), 0.0
+    for case, off_np, planes_np in slice_cases():
+        off, planes = to(off_np), to(planes_np)
+        grid = m2.slice_sum_grid(device, off_np.shape[0])
+        grids.add(grid)
+        before = m2.slice_sum.launches
+        got = [m2.slice_sum(off, planes) for _ in range(3)]
+        if m2.slice_sum.launches != before + 3:
+            raise AssertionError(f"slice_sum {case}: not one launch a call")
+        bits = {g.cpu().numpy().tobytes() for g in got}
+        model = probe_mosaic2.slice_sum_order_model(off_np, planes_np, grid)
+        if bits != {model.tobytes()}:
+            raise AssertionError(f"slice_sum {case}: {got[0]} (bits {bits}) "
+                                 f"!= the order model's {model}")
+        terms = probe_mosaic2.slice_terms(
+            np.clip(off_np, 0, planes_np.shape[0] - 2), planes_np)
+        tol = 1e-5 * np.abs(terms).sum()
+        err = abs(float(got[0]) - float(m2.slice_sum_ref(off, planes)))
+        if err > tol or (off_np.size == 0 and float(got[0]) != 0.0):
+            raise AssertionError(f"slice_sum {case}: {float(got[0])} vs the "
+                                 f"twin, err {err} > {tol}")
+        worst = max(worst, err / tol if tol else 0.0)
+    off, planes = (to(a) for a in probe_mosaic2.dyn_slice_inputs(16384))
+    want = m2.slice_sum(off, planes)
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(st):
+            outs.append(m2.slice_sum(off, planes))
+    torch.cuda.synchronize(device)
+    spaces = {m2._SLICE_WORKSPACES[(device.index, st.cuda_stream)].data_ptr()
+              for st in streams}
+    if len(spaces) != 2 or not all(torch.equal(o, want) for o in outs):
+        raise AssertionError("slice_sum on two streams: shared workspace or "
+                             "other bits")
+    try:
+        m2.slice_sum(off, torch.zeros(640 * 384 + 1, device=device)[1:]
+                     .view(640, 384))
+        raise AssertionError("slice_sum took a misaligned planes view")
+    except ValueError:
+        pass
+    seen = kernels_per_call(lambda: m2.slice_sum(off, planes))
+    if list(seen.values()) != [1.0]:
+        raise AssertionError(f"slice_sum: not one kernel a call: {seen}")
+    log(f"slice_sum: {len(slice_cases())} cases (n 16384/16383/1/0 x W "
+        f"384/383/1 x R 2/640, clamped offsets) == the order model bit for "
+        f"bit at grids {sorted(grids)}, the same bits on 3 calls, within "
+        f"1e-5 of the "
+        f"sum of |terms| of the twin (at most {worst:.3g} of it); two "
+        f"streams, two workspaces, the same bits; a misaligned view raises; "
+        f"one launch and one CUDA kernel a call ({next(iter(seen))})")
+
+
 def check_mosaic2(device) -> list:
-    """tools/probe_mosaic2.py's A, B, C at the probe's size (16384): the
-    redesigned A and C against their twins and their first-port versions
-    (v0) bit for bit, at 16384 and at ragged sizes; then v0, new, the
-    library call, new, v0 in turns, each by CUDA events a call (kernel
-    ms), torch.profiler (device ms, kernels a call) and the host clock
-    (host us a call); the new launch path's split. Returns the records."""
+    """tools/probe_mosaic2.py's A, B, C at the probe's size (16384): A and
+    C against their twins bit for bit, at 16384 and at ragged sizes, B by
+    check_slice_sum; then new, the library call, new in turns, each by
+    CUDA events a call (kernel ms), torch.profiler (device ms, kernels a
+    call), the host clock (host us a call) and events over back-to-back
+    calls (warm ms); the launch path's split. Returns the records."""
     import torch
     from lidar_processing_tpu_torch.kernels import probe_mosaic2 as m2
     from lidar_processing_tpu_torch.tools import probe_mosaic2
@@ -945,51 +1005,53 @@ def check_mosaic2(device) -> list:
         i_k = idx[:k].clone()
         want = m2.gather_sum_ref(i_k, val)
         for name, got in (("gather_sum", m2.gather_sum(i_k, val)),
-                          ("atomic", m2.gather_sum(i_k, val, "atomic")),
-                          ("gather_sum_v0", m2.gather_sum_v0(i_k, val))):
+                          ("atomic", m2.gather_sum(i_k, val, "atomic"))):
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} at n={k}: {got} != {want}")
     for k in (n, n + 128, 128):
         x_k = torch.randn(k, device=device)
-        want = m2.tile_scale_ref(x_k)
-        for fn in (m2.tile_scale, m2.tile_scale_v0):
-            if not torch.equal(fn(x_k), want):
-                raise AssertionError(f"{fn.__name__} at n={k} differs")
+        if not torch.equal(m2.tile_scale(x_k), m2.tile_scale_ref(x_k)):
+            raise AssertionError(f"tile_scale at n={k} differs")
     log(f"mosaic2: gather_sum (both designs) and tile_scale == their twins "
-        f"and v0s at n = {n} and ragged sizes")
+        f"at n = {n} and ragged sizes")
     seen = kernels_per_call(lambda: m2.gather_sum(idx, val))
     if list(seen.values()) != [1.0]:
         raise AssertionError(f"gather_sum: not one kernel a call: {seen}")
     log(f"gather_sum: one kernel a call ({next(iter(seen))})")
+    check_slice_sum(device)
+
+    off_np, planes_np = probe_mosaic2.dyn_slice_inputs(n)
+    off, planes = to(off_np), to(planes_np)
+    # the library yardsticks' indices, made before timing
     idx_l = idx.long()
+    rows = (torch.clamp(off, 0, planes.shape[0] - 2).long()[:, None]
+            + torch.arange(2, device=device)).reshape(-1)
     calls = {
         "gather_sum": (lambda: m2.gather_sum(idx, val),
-                       lambda: m2.gather_sum_v0(idx, val),
                        lambda: torch.take(val, idx_l).sum()),
         "tile_scale": (lambda: m2.tile_scale(x),
-                       lambda: m2.tile_scale_v0(x),
-                       lambda: torch.mul(x, 2.0))}
+                       lambda: torch.mul(x, 2.0)),
+        "slice_sum": (lambda: m2.slice_sum(off, planes),
+                      lambda: planes.index_select(0, rows).sum())}
     timed = {}
-    for name, (new, v0, lib) in calls.items():
-        turns = [("v0", v0), ("new", new), ("library", lib), ("new", new),
-                 ("v0", v0)]
+    for name, (new, lib) in calls.items():
         t = {}
-        for who, fn in turns:
+        for who, fn in (("new", new), ("library", lib), ("new", new)):
             t.setdefault(who, []).append(
                 (cuda_ms(fn), device_ms(fn), host_us(fn), warm_ms(fn)))
         timed[name] = {who: tuple(
             None if None in v else statistics.mean(v) for v in (
                 [x.ms if isinstance(x, DeviceMs) else x for x in col]
-                for col in zip(*rows)))
-            for who, rows in t.items()}
+                for col in zip(*rows_)))
+            for who, rows_ in t.items()}
         kpc = {who: sum(kernels_per_call(fn).values()) for who, fn in
-               (("new", new), ("v0", v0), ("library", lib))}
-        log(f"{name} in turns (v0, new, library, new, v0; kernel ms, "
-            f"device ms, host us, warm ms a call): " + "; ".join(
+               (("new", new), ("library", lib))}
+        log(f"{name} in turns (new, library, new; kernel ms, device ms, "
+            f"host us, warm ms a call): " + "; ".join(
                 f"{who} " + " / ".join(
                     f"{a:.4f}, {fmt_ms(b)}, {c:.2f}, {d:.4f}"
-                    for a, b, c, d in rows)
-                for who, rows in t.items()) + f"; kernels a call {kpc}")
+                    for a, b, c, d in rows_)
+                for who, rows_ in t.items()) + f"; kernels a call {kpc}")
     atomic = lambda: m2.gather_sum(idx, val, "atomic")  # noqa: E731
     log(f"gather_sum designs: cluster kernel "
         f"{timed['gather_sum']['new'][0]:.4f} ms, device "
@@ -998,56 +1060,31 @@ def check_mosaic2(device) -> list:
         f"host {host_us(atomic):.2f} us")
     log(f"launch path, host us a call: {launch_split(idx, val, x)}")
 
+    got = float(m2.slice_sum(off, planes))
+    slice_err = abs(got - float(m2.slice_sum_ref(off, planes)))
     records = []
-    for name, src_line, ref, b in (
+    for name, src_line, ref, b, err in (
             ("gather_sum", "tools/probe_mosaic2.py:38",
              lambda: m2.gather_sum_ref(idx, val),
-             bound(4 * (idx.numel() + val.numel()) + 4)),
+             bound(4 * (idx.numel() + val.numel()) + 4), 0),
+            ("slice_sum", "tools/probe_mosaic2.py:60",
+             lambda: m2.slice_sum_ref(off, planes),
+             bound(4 * (off.numel() + planes.numel()) + 4,
+                   2 * planes.shape[1] * n), slice_err),
             ("tile_scale", "tools/probe_mosaic2.py:83",
-             lambda: m2.tile_scale_ref(x), bound(8 * n))):
+             lambda: m2.tile_scale_ref(x), bound(8 * n), 0)):
         plain = cuda_ms(ref)
-        for who, rec in (("new", name), ("v0", f"{name}_v0")):
-            ms, dev_ms, h_us, w_ms = timed[name][who]
-            records.append({
-                "name": rec, "source": f"{CSRC}/probe_mosaic2.cu",
-                "replaces": src_line, "max_abs_err": 0, "ms": ms,
-                "plain_ms": plain, **b,
-                "library_ms": timed[name]["library"][0]})
-            log(f"{rec}: kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}, host "
-                f"{h_us:.2f} us, warm {w_ms:.4f} ms), plain {plain:.4f} ms, "
-                f"library "
-                f"{timed[name]['library'][0]:.4f} ms (device "
-                f"{fmt_ms(timed[name]['library'][1])}, host "
-                f"{timed[name]['library'][2]:.2f} us, warm "
-                f"{timed[name]['library'][3]:.4f} ms), bound "
-                f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
-
-    off_np, planes_np = probe_mosaic2.dyn_slice_inputs(n)
-    off, planes = to(off_np), to(planes_np)
-    got = float(m2.slice_sum(off, planes))
-    want = float(m2.slice_sum_ref(off, planes))
-    tol = 1e-5 * np.abs(probe_mosaic2.slice_terms(off_np, planes_np)).sum()
-    if abs(got - want) > tol:
-        raise AssertionError(f"slice_sum {got} vs twin {want} (tol {tol})")
-    # the library yardstick's row indices, made before timing
-    rows = (torch.clamp(off, 0, planes.shape[0] - 2).long()[:, None]
-            + torch.arange(2, device=device)).reshape(-1)
-    kernel = lambda: m2.slice_sum(off, planes)  # noqa: E731
-    library = lambda: planes.index_select(0, rows).sum()  # noqa: E731
-    t, t_lib = timing(kernel), timing(library)
-    plain = cuda_ms(lambda: m2.slice_sum_ref(off, planes))
-    b = bound(4 * (off.numel() + planes.numel()) + 4,
-              2 * planes.shape[1] * n)
-    records.append({"name": "slice_sum",
-                    "source": f"{CSRC}/probe_mosaic2.cu",
-                    "replaces": "tools/probe_mosaic2.py:60",
-                    "max_abs_err": abs(got - want), "ms": t["kernel"],
-                    "plain_ms": plain, **b, "library_ms": t_lib["kernel"]})
-    log(f"slice_sum: {fmt_timing(t)}; plain {plain:.4f} ms; library "
-        f"index_select+sum {fmt_timing(t_lib)}; bound "
-        f"{b['bound_ms']:.6f} ms ({b['bound_by']}); by device ms "
-        f"{rank(t, t_lib, 'device')}, by warm ms {rank(t, t_lib, 'warm')}; "
-        f"max abs err {abs(got - want)}")
+        ms, d_ms, h_us, w_ms = timed[name]["new"]
+        lib = timed[name]["library"]
+        records.append({
+            "name": name, "source": f"{CSRC}/probe_mosaic2.cu",
+            "replaces": src_line, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, **b, "library_ms": lib[0]})
+        log(f"{name}: kernel {ms:.4f} ms (device {fmt_ms(d_ms)}, host "
+            f"{h_us:.2f} us, warm {w_ms:.4f} ms), plain {plain:.4f} ms, "
+            f"library {lib[0]:.4f} ms (device {fmt_ms(lib[1])}, host "
+            f"{lib[2]:.2f} us, warm {lib[3]:.4f} ms), bound "
+            f"{b['bound_ms']:.6f} ms ({b['bound_by']}); max abs err {err}")
     return records
 
 
@@ -1165,7 +1202,7 @@ def check_real_frame(device, res, dbg):
     clustering path's old _stacked_windows
     + min_d2_planar (bit for bit), each by timing(). Returns the edge list
     for the probe path and (points (n, 3), us, uc, vs, vc) of the pairs
-    as numpy, for pair_turns."""
+    as numpy, for parent_turns."""
     import torch
     from lidar_processing_tpu_torch.config import DEFAULT_CONFIG as cfg
     from lidar_processing_tpu_torch.kernels import probe_uf as puf
@@ -1237,25 +1274,27 @@ def check_real_frame(device, res, dbg):
     return (eu, ev, ne), frame_pairs
 
 
-def pair_turns(frame_pairs, smi: str) -> None:
-    """The pair kernels of a parent tree unpacked under build/parent (a
-    `git archive` of an earlier commit) against this tree's, in turns
-    (parent, change, change, parent; tools/kernel_bench.py), on the JAX
-    probes' inputs and frame 0's small ambiguous pairs. Skipped without
-    a parent tree."""
+def parent_turns(frame_pairs, smi: str) -> None:
+    """The pair kernels and slice_sum of a parent tree unpacked under
+    build/parent (a `git archive` of an earlier commit) against this
+    tree's, in turns (parent, change, change, parent;
+    tools/kernel_bench.py), on the JAX probes' inputs, frame 0's small
+    ambiguous pairs and slice_sum's sweep of n. Skipped without a parent
+    tree."""
     from lidar_processing_tpu_torch.tools import kernel_bench
     if not (PARENT / "lidar_processing_tpu_torch").is_dir():
-        log(f"pair turns: no parent tree under {PARENT.relative_to(HERE)}; "
-            f"skipped")
+        log(f"parent turns: no parent tree under "
+            f"{PARENT.relative_to(HERE)}; skipped")
         return
     kernel_bench.run_turns(
-        [PARENT, HERE], kernel_bench.pair_inputs(frame_pairs), turns=2,
-        log=lambda m: log(f"pair turns ({smi}): {m}"))
+        [PARENT, HERE], kernel_bench.pair_inputs(frame_pairs),
+        kernel_bench.slice_inputs(), turns=2,
+        log=lambda m: log(f"parent turns ({smi}): {m}"))
 
 
 PROBE_KERNELS = ("uf_probe", "uf_serial", "uf_packed", "uf_packed_noskip",
                  "pair_min_d2_v48", "pair_min_d2_v96", "gather_sum",
-                 "gather_sum_v0", "slice_sum", "tile_scale", "tile_scale_v0")
+                 "slice_sum", "tile_scale")
 
 
 def run_probe_path(device, edges) -> dict:
@@ -1271,7 +1310,7 @@ def run_probe_path(device, edges) -> dict:
     wrappers = {w.__name__: w for w in (
         puf.uf_probe, puf.uf_serial, puf.uf_packed, puf.uf_packed_noskip,
         pp.pair_min_d2_v48, pp.pair_min_d2_v96, m2.gather_sum,
-        m2.gather_sum_v0, m2.slice_sum, m2.tile_scale, m2.tile_scale_v0)}
+        m2.slice_sum, m2.tile_scale)}
     for w in wrappers.values():
         w.launches = 0
     probe_uf.main(device)
@@ -2465,7 +2504,7 @@ def main() -> None:
         kernels += check_uf_probes(device, edges, smi)
         kernels += check_pairs(device) + check_mosaic2(device)
         frame_edges, frame_pairs = check_real_frame(device, res, dbg)
-        pair_turns(frame_pairs, smi)
+        parent_turns(frame_pairs, smi)
         probe_launches = run_probe_path(device, frame_edges)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

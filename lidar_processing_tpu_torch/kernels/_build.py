@@ -46,10 +46,8 @@ _ENTRIES = (
     ("pair_min_d2_v48_launch", [_P, _I, _I] + [_P] * 5 + [_I, _P]),
     ("pair_min_d2_v96_launch", [_P, _I, _I] + [_P] * 5 + [_I, _P]),
     ("gather_sum_launch", [_P, _P, _I, _I, _P, _I, _P]),
-    ("gather_sum_v0_launch", [_P, _P, _I, _I, _P, _P, _P]),
-    ("slice_sum_launch", [_P, _P, _I, _I, _I, _P, _P, _P]),
+    ("slice_sum_launch", [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
     ("tile_scale_launch", [_P, _P, _I, _P]),
-    ("tile_scale_v0_launch", [_P, _P, _I, _P]),
 )
 # each entry point's ctypes function, bound once by library()
 _BOUND: dict = {}
@@ -163,10 +161,11 @@ def checked(name: str, *specs) -> torch.device:
     return dev
 
 
-def launch(fn, entry: str, device, *args) -> None:
+def launch(fn, entry: str, device, *args, stream=None) -> None:
     """Call C entry point `entry` with `args` (ints: pointers from
-    data_ptr() and sizes) and the device's current stream; raise on a
-    nonzero cudaError_t, else count the launch on the wrapper `fn`.
+    data_ptr() and sizes) and `stream` (a raw stream as an int; by default
+    the device's current stream); raise on a nonzero cudaError_t, else
+    count the launch on the wrapper `fn`.
 
     The host's share of a call, cut to: a dict lookup of the bound ctypes
     function, the current device and the device's raw stream as ints (no
@@ -177,25 +176,13 @@ def launch(fn, entry: str, device, *args) -> None:
         library()
     c_fn = _BOUND[entry]
     index = device.index
+    if stream is None:
+        stream = torch._C._cuda_getCurrentRawStream(index)
     if torch._C._cuda_getDevice() == index:
-        rc = c_fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        rc = c_fn(*args, stream)
     else:
         with torch.cuda.device(index):
-            rc = c_fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__}: CUDA error {rc} at launch")
-    fn.launches += 1
-
-
-def launch_v0(fn, entry: str, device, *args) -> None:
-    """The first port's launch path, kept for the v0 probes
-    (kernels/probe_mosaic2.py) so that one process can time both: a
-    device guard every call, a Stream object built to read its
-    ``cuda_stream``, and a getattr on the CDLL (whose calls release and
-    retake the GIL)."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(library(), entry)(*args, stream)
+            rc = c_fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA error {rc} at launch")
     fn.launches += 1

@@ -1,7 +1,7 @@
-"""Kernel timing on the card, and the pair kernels of several trees in turns.
+"""Kernel timing on the card, and probe kernels of several trees in turns.
 
     python -m lidar_processing_tpu_torch.tools.kernel_bench \\
-        --trees PARENT_DIR . --turns 2 --out pair_bench.json
+        --trees PARENT_DIR . --turns 2 --out bench.json
 
 Timing helpers, shared with chip_smoke.py: ``cuda_ms`` (CUDA events
 around isolated calls), ``device_ms`` (torch.profiler's device time of a
@@ -9,21 +9,32 @@ call, retried until a profile keeps every call's kernel events),
 ``warm_ms`` (CUDA events around back-to-back calls), ``host_us`` (the
 host clock a call, no synchronise in the loop) and ``kernels_per_call``.
 
-The pair turns: the inputs of the pair-minimum kernels
-(kernels/probe_pairs.py) are made once: tools/probe_mosaic.py's (512
-pairs, v <= 48, the (n/8, 24) stacked view), tools/probe_mosaic3.py's
-(8192 pairs, v <= 96, (n/128 + 16, 384) rows; also with every pair's
-counts fixed, ``SWEEP``) and, where given, a frame's small ambiguous
-supernode pairs (v <= 96, a planar (3, n) array). Then
-each tree measures its own kernels in a fresh process, its root first on
-``sys.path``, in turns: the trees in order in even turns and reversed in
-odd ones (parent, change, change, parent for two trees and two turns).
-Per input, "ready" times the kernel's wrapper on a layout made
-beforehand (a tree whose wrappers take x/y/z planes gets the planes), and
-"user" the probe's call as a user makes it (``mosaic_pairs`` /
-``mosaic3_pairs``, the layout as the probe gives it). Every tree must
-give the same bits. The script needs a CUDA GPU and never falls back to
-the CPU.
+The turns: the inputs are made once, then each tree measures its own
+kernels on them in a fresh process, its root first on ``sys.path``, in
+turns: the trees in order in even turns and reversed in odd ones
+(parent, change, change, parent for two trees and two turns). Two sets:
+
+- ``pairs``, the pair-minimum kernels (kernels/probe_pairs.py):
+  tools/probe_mosaic.py's inputs (512 pairs, v <= 48, the (n/8, 24)
+  stacked view), tools/probe_mosaic3.py's (8192 pairs, v <= 96, (n/128 +
+  16, 384) rows; also with every pair's counts fixed, ``SWEEP``) and,
+  where given, a frame's small ambiguous supernode pairs (v <= 96, a
+  planar (3, n) array). Per input, "ready" times the kernel's wrapper on
+  a layout made beforehand (a tree whose wrappers take x/y/z planes gets
+  the planes), and "user" the probe's call as a user makes it
+  (``mosaic_pairs`` / ``mosaic3_pairs``). Every tree must give the same
+  bits: the pair minima are exact.
+- ``slice``, the dynamic-slice kernel ``slice_sum(off, planes)``
+  (kernels/probe_mosaic2.py) on tools/probe_mosaic2.py's inputs at n =
+  1024, 16384 (the probe's) and 65536 terms of a (640, 384) array. Its
+  f32 sum is taken in an order of each tree's own design, so the trees'
+  bits differ by design: each tree must give the same bits on its own
+  repeated calls (3 a process, and across its turns), and be within
+  1e-5 of the sum of |terms| of the float64 sum.
+
+Rank by device ms and warm ms: at these sizes events around one call
+time the host's launch path. The script needs a CUDA GPU and never
+falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -193,7 +204,7 @@ def fmt_timing(t: dict) -> str:
             f"warm {t['warm']:.4f} ms, host {t['host']:.2f} us")
 
 
-# ---- the pair kernels in turns ---------------------------------------------
+# ---- probe kernels in turns -------------------------------------------------
 
 SWEEP = ((1, 1), (8, 1), (1, 96), (8, 96))   # (uc, vc) of the count sweep
 
@@ -220,18 +231,37 @@ def pair_inputs(frame_pairs=None) -> dict:
     return out
 
 
+SLICE_TERMS = (1024, 16384, 65536)
+
+
+def slice_inputs() -> dict:
+    """{set: (off, planes)} as numpy: tools/probe_mosaic2.py's seeded
+    dynamic-slice inputs at each n of SLICE_TERMS."""
+    from lidar_processing_tpu_torch.tools.probe_mosaic2 import (
+        dyn_slice_inputs)
+    return {f"slice_sum n={n}": dyn_slice_inputs(n) for n in SLICE_TERMS}
+
+
 def _digest(t) -> str:
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def _timed_call(f) -> dict:
+    t = timing(f)
+    t["device"] = t["device"]._asdict()
+    t.update(kernels=sum(kernels_per_call(f).values()), digest=_digest(f()))
+    return t
+
+
 def measure(tree: Path, inputs: Path) -> dict:
-    """One tree's pair kernels on the card (run in a fresh process):
-    {set: {call: timing + kernels a call + output digest}}."""
+    """One tree's kernels on the card (run in a fresh process): {set:
+    {call: timing + kernels a call + output digest (+ value)}}."""
     sys.path.insert(0, str(tree))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: needs a CUDA GPU")
     import lidar_processing_tpu_torch as port
+    from lidar_processing_tpu_torch.kernels import probe_mosaic2 as m2
     from lidar_processing_tpu_torch.kernels import probe_pairs as pp
     if Path(port.__file__).resolve().parents[1] != tree.resolve():
         raise SystemExit(f"kernel_bench: imported {port.__file__}, not the "
@@ -240,12 +270,12 @@ def measure(tree: Path, inputs: Path) -> dict:
     takes_layout = "points" in params
     dev = torch.device("cuda", 0)
     data = np.load(inputs, allow_pickle=False)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     out = {}
     for name in json.loads(str(data["sets"])):
         v_cap, lanes = (int(a) for a in data[f"{name}/meta"])
-        rows = torch.from_numpy(data[f"{name}/rows"]).to(dev)
-        runs = [torch.from_numpy(data[f"{name}/{k}"]).to(dev)
-                for k in ("us", "uc", "vs", "vc")]
+        rows = to(data[f"{name}/rows"])
+        runs = [to(data[f"{name}/{k}"]) for k in ("us", "uc", "vs", "vc")]
         fn = pp.pair_min_d2_v48 if v_cap == 48 else pp.pair_min_d2_v96
         if takes_layout:
             calls = {"ready": lambda fn=fn, r=rows, ln=lanes, u=runs: fn(
@@ -257,13 +287,17 @@ def measure(tree: Path, inputs: Path) -> dict:
             calls["user"] = lambda r=rows, u=runs: pp.mosaic_pairs(r, *u)
         elif name == "probe_mosaic3":
             calls["user"] = lambda r=rows, u=runs: pp.mosaic3_pairs(*u, r)
-        out[name] = {}
-        for call, f in calls.items():
-            t = timing(f)
-            t["device"] = t["device"]._asdict()
-            t.update(kernels=sum(kernels_per_call(f).values()),
-                     digest=_digest(f()))
-            out[name][call] = t
+        out[name] = {call: _timed_call(f) for call, f in calls.items()}
+    for name in json.loads(str(data["slices"])):
+        off, planes = to(data[f"{name}/off"]), to(data[f"{name}/planes"])
+        f = lambda o=off, p=planes: m2.slice_sum(o, p)  # noqa: E731
+        digests = {_digest(f()) for _ in range(3)}
+        if len(digests) != 1:
+            raise AssertionError(f"kernel_bench: {tree} {name}: other bits "
+                                 f"on repeated calls ({sorted(digests)})")
+        t = _timed_call(f)
+        t["value"] = float(f()[0, 0])
+        out[name] = {"slice_sum": t}
     out["device"] = torch.cuda.get_device_name(0)
     return out
 
@@ -286,26 +320,35 @@ def _fmt_call(t: dict) -> str:
             f"a call")
 
 
-def run_turns(trees, inputs: dict, turns: int = 2, log=print) -> dict:
-    """Each tree's pair kernels on `inputs` (pair_inputs()) in turns;
-    raises unless every tree gives the same bits. Returns {"runs": {tree:
-    [measure()]}, "mean": {tree: {set: {call: {metric: mean}}}}}."""
+def run_turns(trees, inputs: dict, slices: dict, turns: int = 2,
+              log=print) -> dict:
+    """Each tree's kernels on `inputs` (pair_inputs()) and `slices`
+    (slice_inputs()) in turns; raises unless every tree gives the same
+    pair minima, and each tree the same slice_sum bits in every run,
+    within 1e-5 of the sum of |terms| of the float64 sum. Returns {"runs":
+    {tree: [measure()]}, "mean": {tree: {set: {call: {metric: mean}}}}}."""
     trees = [Path(t).resolve() for t in trees]
+    sets = [*inputs, *slices]
     runs = {str(t): [] for t in trees}
     with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "pairs.npz"
-        arrays = {"sets": np.array(json.dumps(list(inputs)))}
+        path = Path(tmp) / "inputs.npz"
+        arrays = {"sets": np.array(json.dumps(list(inputs))),
+                  "slices": np.array(json.dumps(list(slices)))}
         for name, (v_cap, rows, lanes, *r) in inputs.items():
             arrays[f"{name}/meta"] = np.array([v_cap, lanes], np.int64)
             arrays[f"{name}/rows"] = np.ascontiguousarray(rows, np.float32)
             for k, a in zip(("us", "uc", "vs", "vc"), r):
                 arrays[f"{name}/{k}"] = np.ascontiguousarray(a, np.int32)
+        for name, (off, planes) in slices.items():
+            arrays[f"{name}/off"] = np.ascontiguousarray(off, np.int32)
+            arrays[f"{name}/planes"] = np.ascontiguousarray(planes,
+                                                            np.float32)
         np.savez(path, **arrays)
         for i in range(turns):
             for tree in (trees if i % 2 == 0 else trees[::-1]):
                 r = _run_one(tree, path)
                 runs[str(tree)].append(r)
-                for name in inputs:
+                for name in sets:
                     for call, t in r[name].items():
                         log(f"turn {i} {tree.name or tree} {name} {call}: "
                             f"{_fmt_call(t)}")
@@ -314,6 +357,20 @@ def run_turns(trees, inputs: dict, turns: int = 2, log=print) -> dict:
     if len(digests) != len(inputs):
         raise AssertionError(f"kernel_bench: the trees' pair minima differ "
                              f"({sorted(digests)})")
+    for name, (off, planes) in slices.items():
+        terms = planes[np.clip(off, 0, planes.shape[0] - 2)[:, None]
+                       + np.arange(2)].astype(np.float64)
+        tol = 1e-5 * np.abs(terms).sum()
+        for tree, rs in runs.items():
+            got = {(r[name]["slice_sum"]["digest"],
+                    r[name]["slice_sum"]["value"])
+                   for r in rs}
+            if len(got) != 1 or abs(next(iter(got))[1] - terms.sum()) > tol:
+                raise AssertionError(f"kernel_bench: {tree} {name}: {got} "
+                                     f"against {terms.sum()} (tol {tol})")
+            log(f"{Path(tree).name or tree} {name}: {next(iter(got))[1]!r} "
+                f"in every run, float64 sum {float(terms.sum())!r}, tol "
+                f"{tol:.4g}")
     mean = {}
     for tree, rs in runs.items():
         mean[tree] = {name: {call: {
@@ -325,7 +382,7 @@ def run_turns(trees, inputs: dict, turns: int = 2, log=print) -> dict:
                             ("host", [r[name][call]["host"] for r in rs]),
                             ("kernels", [r[name][call]["kernels"]
                                          for r in rs]))}
-            for call in rs[0][name]} for name in inputs}
+            for call in rs[0][name]} for name in sets}
     for tree, m in mean.items():
         for name, calls in m.items():
             log(f"mean of {turns} turns, {Path(tree).name or tree} {name}: "
@@ -350,7 +407,8 @@ def main(argv=None) -> dict:
         print(json.dumps(res), flush=True)
         return res
     sys.path.insert(0, str(_ROOT))
-    result = run_turns(args.trees, pair_inputs(), args.turns)
+    result = run_turns(args.trees, pair_inputs(), slice_inputs(),
+                       args.turns)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

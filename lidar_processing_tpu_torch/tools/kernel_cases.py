@@ -15,13 +15,17 @@ chip_smoke.py:
 - ``pair_cases`` and ``pair_layouts``: runs for the pair-minimum probe
   kernels (kernels/probe_pairs.py; u <= 8, v <= v_cap points) at their
   contract's edges, and one point array in the three row layouts the
-  kernels read in place.
+  kernels read in place;
+- ``slice_cases``: (off, planes) for the dynamic-slice probe kernel
+  (kernels/probe_mosaic2.py::slice_sum) at n in {16384, 16383, 1, 0} x
+  W in {384, 383, 1} x R in {2, 640}, offsets below 0 and past R - 2.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .probe_mosaic2 import dyn_slice_inputs
 from .probe_uf import scipy_labels
 
 
@@ -162,3 +166,19 @@ def pair_layouts(xyz: np.ndarray, pad_rows: int = 16):
     return {"stacked (L = 8)": (rows(8, planes), 8, planes),
             "rows (L = 128)": (rows(128, padded), 128, padded),
             "planar (L = n)": (planes.reshape(1, -1), n, planes)}
+
+
+def slice_cases(seed: int = 0):
+    """[(name, off (n,) int32, planes (R, W) f32)]: probe_mosaic2's
+    inputs (16384 terms of a (640, 384) array) with some offsets set
+    below 0, past R - 2 and to R - 1 (all clamp), cut to n terms, W
+    columns (W % 4 == 0: float4 rows; else the float path) and R rows
+    (R = 2: every term is rows 0 and 1)."""
+    off, planes = dyn_slice_inputs(16384, seed)
+    off[::97] = -5
+    off[1::89] = 10 ** 6
+    off[2::83] = planes.shape[0] - 1
+    return [(f"n={n} W={w} R={r}", off[:n].copy(),
+             np.ascontiguousarray(planes[:r, :w]))
+            for n in (16384, 16383, 1, 0) for w in (384, 383, 1)
+            for r in (2, 640)]

@@ -27,7 +27,8 @@ from lidar_processing_tpu_torch.runtime import pipeline as tpipe
 from lidar_processing_tpu_torch.runtime.pipeline import (
     device_frame_step_packed)
 from lidar_processing_tpu_torch.tools import probe_uf, probe_uf2
-from lidar_processing_tpu_torch.tools.kernel_cases import (tier_cases,
+from lidar_processing_tpu_torch.tools.kernel_cases import (slice_cases,
+                                                           tier_cases,
                                                            uf_graphs,
                                                            uf_oracle)
 from lidar_processing_tpu_torch.types import SEG_OBSTACLE, frame_of
@@ -313,12 +314,10 @@ def test_mosaic2_kernels_match_twins(cuda):
     for n in (16384, 16383, 16381, 3, 0):
         i_n = idx[:n].clone()
         want = m2.gather_sum_ref(i_n, val)
-        before = (m2.gather_sum.launches, m2.gather_sum_v0.launches)
-        for got in (m2.gather_sum(i_n, val), m2.gather_sum(i_n, val, "atomic"),
-                    m2.gather_sum_v0(i_n, val)):
+        before = m2.gather_sum.launches
+        for got in (m2.gather_sum(i_n, val), m2.gather_sum(i_n, val, "atomic")):
             assert got.shape == (1, 1) and torch.equal(got, want), n
-        assert (m2.gather_sum.launches, m2.gather_sum_v0.launches) == (
-            before[0] + 2, before[1] + 1)
+        assert m2.gather_sum.launches == before + 2
     with pytest.raises(ValueError, match="aligned"):
         m2.gather_sum(idx[1:], val)
     # a non-multiple of 1024 elements: the last block partly idle
@@ -326,7 +325,6 @@ def test_mosaic2_kernels_match_twins(cuda):
         x = torch.randn(n, device=cuda)
         want = m2.tile_scale_ref(x)
         assert torch.equal(m2.tile_scale(x), want), n
-        assert torch.equal(m2.tile_scale_v0(x), want), n
     with pytest.raises(ValueError, match="aligned"):
         m2.tile_scale(torch.zeros(16384 + 1, device=cuda)[1:])
     off, planes = probe_mosaic2.dyn_slice_inputs(16384)
@@ -337,6 +335,63 @@ def test_mosaic2_kernels_match_twins(cuda):
         <= 1e-5 * np.abs(terms).sum()
     x = torch.from_numpy(probe_mosaic2.accum_store_inputs(16384)).to(cuda)
     assert torch.equal(m2.tile_scale(x), m2.tile_scale_ref(x))
+
+
+def test_slice_sum_kernel(cuda):
+    """slice_sum on the card: within 1e-5 of the sum of |terms| of the twin
+    and bit for bit the order model (tools/probe_mosaic2.py) for the grid
+    the wrapper reports for each n (a warp a term, up to 2 blocks an SM),
+    at n in {16384, 16383, 1, 0} x W in {384, 383,
+    1} x R in {2, 640}, offsets clamped from below 0 and past R - 2; the
+    same bits on 3 calls and on two streams, each with its own workspace;
+    a misaligned planes view raises; one launch and one CUDA kernel a
+    call."""
+    from lidar_processing_tpu_torch.kernels import probe_mosaic2 as m2
+    from lidar_processing_tpu_torch.tools import kernel_bench
+    from lidar_processing_tpu_torch.tools import probe_mosaic2 as pm2
+    most = m2.SLICE_BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    assert [m2.slice_sum_grid(cuda, n) for n in (0, 1, 8, 9, 1024, 16384)] \
+        == [1, 1, 1, 2, 128, most]
+    for case, off, planes in slice_cases():
+        grid = m2.slice_sum_grid(cuda, off.shape[0])
+        rows = planes.shape[0]
+        t_off, t_pl = (torch.from_numpy(a).to(cuda) for a in (off, planes))
+        before = m2.slice_sum.launches
+        got = [m2.slice_sum(t_off, t_pl) for _ in range(3)]
+        assert m2.slice_sum.launches == before + 3
+        bits = {g.cpu().numpy().tobytes() for g in got}
+        assert len(bits) == 1, case
+        assert got[0].shape == (1, 1) and got[0].dtype == torch.float32
+        model = pm2.slice_sum_order_model(off, planes, grid)
+        assert bits == {model.tobytes()}, case
+        terms = pm2.slice_terms(np.clip(off, 0, rows - 2), planes)
+        twin = float(m2.slice_sum_ref(t_off, t_pl))
+        assert abs(float(got[0]) - twin) <= 1e-5 * np.abs(terms).sum(), case
+        if off.size == 0:
+            assert float(got[0]) == 0.0
+    off, planes = (torch.from_numpy(a).to(cuda)
+                   for a in pm2.dyn_slice_inputs(16384))
+    want = m2.slice_sum(off, planes)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    outs = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(st):
+            outs.append(m2.slice_sum(off, planes))
+    torch.cuda.synchronize(cuda)
+    spaces = [m2._SLICE_WORKSPACES[(cuda.index, st.cuda_stream)]
+              for st in streams]
+    assert spaces[0].data_ptr() != spaces[1].data_ptr()
+    for out in outs:
+        assert torch.equal(out, want)
+    flat = torch.zeros(640 * 384 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        m2.slice_sum(off, flat[1:].view(640, 384))
+    with pytest.raises(ValueError):
+        m2.slice_sum(off, planes[:1])
+    seen = kernel_bench.kernels_per_call(lambda: m2.slice_sum(off, planes))
+    assert list(seen.values()) == [1.0], seen
 
 
 def test_launch_skips_the_guard_on_the_current_device(cuda):

@@ -12,7 +12,8 @@ minima within 4 ULP of the Pallas kernels in interpret mode
 (tests/test_kernels.py's criterion for min_d2), and the port's trimmed
 window, its layouts and its twin equal bit for bit;
 mosaic2 A and C equal, B within 1e-5 of the sum of |terms| (f32 sums
-taken in another order).
+taken in another order), and so is the numpy model of the B kernel's own
+order (which the card tests hold the kernel to bit for bit).
 """
 
 import importlib.util
@@ -437,10 +438,9 @@ def test_probe_mosaic2_twins_match_pallas_interpret(monkeypatch):
     want_a, want_b, want_c = outs
 
     idx, val = tmos2.scalar_loads_inputs(n_a)
-    for fn in (tm2.gather_sum, tm2.gather_sum_v0):
-        got_a = fn(torch.from_numpy(idx), torch.from_numpy(val))
-        assert got_a.dtype == torch.int32
-        np.testing.assert_array_equal(got_a.numpy(), want_a)
+    got_a = tm2.gather_sum(torch.from_numpy(idx), torch.from_numpy(val))
+    assert got_a.dtype == torch.int32
+    np.testing.assert_array_equal(got_a.numpy(), want_a)
 
     off, planes = tmos2.dyn_slice_inputs(n_b)
     got_b = tm2.slice_sum(torch.from_numpy(off), torch.from_numpy(planes))
@@ -450,14 +450,13 @@ def test_probe_mosaic2_twins_match_pallas_interpret(monkeypatch):
         <= 1e-5 * np.abs(terms).sum()
 
     x = tmos2.accum_store_inputs(n_c)
-    for fn in (tm2.tile_scale, tm2.tile_scale_v0):
-        np.testing.assert_array_equal(fn(torch.from_numpy(x)).numpy(),
-                                      want_c)
+    np.testing.assert_array_equal(tm2.tile_scale(torch.from_numpy(x)).numpy(),
+                                  want_c)
 
 
 def test_probe_mosaic2_main_and_edge_cases():
     out = tmos2.main(device="cpu", n=2048, reps=1)
-    assert set(out) == {"A", "A0", "B", "C", "C0"}
+    assert set(out) == {"A", "B", "C"}
     # indices clamp into range, as the kernels' do
     val = torch.arange(10, dtype=torch.int32)
     got = tm2.gather_sum(torch.tensor([-3, 4, 99], dtype=torch.int32), val)
@@ -467,8 +466,114 @@ def test_probe_mosaic2_main_and_edge_cases():
     assert float(got) == float(planes[2:4].sum())
     with pytest.raises(ValueError):
         tm2.tile_scale(torch.zeros(100))
-    with pytest.raises(ValueError):
-        tm2.tile_scale_v0(torch.zeros(100))
+
+
+def test_entries_bind_every_entry_point_of_probe_mosaic2_cu():
+    """kernels/_build.py binds each extern "C" function of
+    csrc/probe_mosaic2.cu with as many arguments as the source declares,
+    and keeps no first-port (v0) entry or launch path."""
+    from lidar_processing_tpu_torch.kernels import _build
+    src = (_build.CSRC / "probe_mosaic2.cu").read_text()
+    decls = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)
+    assert {n for n, _ in decls} == {"gather_sum_launch",
+                                     "slice_sum_launch", "tile_scale_launch"}
+    entries = dict(_build._ENTRIES)
+    for name, params in decls:
+        assert len(entries[name]) == len(params.split(",")), name
+    assert not [n for n in (*vars(_build), *entries, *vars(tm2))
+                if "_v0" in n]
+
+
+def test_slice_kernel_constants_match_the_wrapper():
+    """The order model and the wrapper take the kernel's split and
+    in-flight counts from kernels/probe_mosaic2.py: they must be the
+    .cu file's."""
+    from lidar_processing_tpu_torch.kernels import _build
+    src = (_build.CSRC / "probe_mosaic2.cu").read_text()
+    const = {k: int(v) for k, v in
+             re.findall(r"constexpr int (kSlice\w+) = (\d+);", src)}
+    assert const == {"kSliceWarps": tm2.SLICE_WARPS,
+                     "kSliceTerms": tm2.SLICE_TERMS,
+                     "kSliceChunks": tm2.SLICE_CHUNKS,
+                     "kSliceBlocksPerSm": tm2.SLICE_BLOCKS_PER_SM}
+    assert re.search(r"constexpr int kThreads = (\d+);", src).group(1) \
+        == str(32 * tm2.SLICE_WARPS)
+    assert 32 % tm2.SLICE_TERMS == 0   # a group never straddles 32 offsets
+
+
+def _cancelling_planes(rows, width, seed=1):
+    """Rows of +-1e4 with small residues: an f32 sum's order shows."""
+    rng = np.random.default_rng(seed)
+    sign = np.where(rng.random((rows, width)) < 0.5, -1.0, 1.0)
+    return (sign * 1e4 + rng.uniform(-1e-2, 1e-2, (rows, width))).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("grid", [1, 7, 264])
+def test_slice_sum_order_model_within_tolerance(grid):
+    """The kernel's order of f32 adds, as the numpy model computes it,
+    lands within 1e-5 of the sum of |terms| of the float64 sum: on the
+    probe's inputs (the float4 path), their first 383 columns (the float
+    path) and crafted cancelling rows, ragged term counts included."""
+    off, planes = tmos2.dyn_slice_inputs(16384)
+    cases = [(off, planes), (off[:16383], np.ascontiguousarray(
+        planes[:, :383])), (off[:1000], _cancelling_planes(640, 384)),
+        (off[:999], _cancelling_planes(640, 383))]
+    for o, p in cases:
+        terms = tmos2.slice_terms(o, p)
+        got = tmos2.slice_sum_order_model(o, p, grid)
+        assert got.dtype == np.float32
+        assert abs(float(got) - terms.sum()) <= 1e-5 * np.abs(terms).sum()
+    assert tmos2.slice_sum_order_model(off[:0], planes, grid) == 0.0
+
+
+def test_slice_sum_order_model_adds_in_the_stated_order():
+    """One term, one warp: item q of the 2 x W slice is lane q's (a
+    float4 at W = 4, components into s0..s3; chunk c into s_(c % 4) at
+    W = 33), a lane's value (s0 + s1) + (s2 + s3) and lane 0 adds lane 1
+    last. Values where another order rounds otherwise; clamped offsets
+    read rows R - 2 and 0."""
+    x = np.array([[1e8, 1, -1e8, 1], [3, 1e-3, -7, 2.5]], np.float32)
+    lane = [(x[r, 0] + x[r, 1]) + (x[r, 2] + x[r, 3]) for r in (0, 1)]
+    for o in (0, 5, -3):
+        got = tmos2.slice_sum_order_model(np.array([o], np.int32), x, 1, 1,
+                                          1, 1)
+        assert got.tobytes() == (lane[0] + lane[1]).tobytes()
+    assert float(lane[0] + lane[1]) != float(x.astype(np.float64).sum())
+    # the float path: 66 items, lanes 0 and 1 take 3 chunks, the rest 2
+    y = _cancelling_planes(2, 33)
+    items = y.reshape(-1)
+    lanes = []
+    for ln in range(32):
+        s = np.zeros(4, np.float32)
+        for c in range(3):
+            if 32 * c + ln < 66:
+                s[c % 4] = s[c % 4] + items[32 * c + ln]
+        lanes.append((s[0] + s[1]) + (s[2] + s[3]))
+    v = np.array(lanes, np.float32)
+    for step in (16, 8, 4, 2, 1):
+        v[:step] = v[:step] + v[step:2 * step]
+    got = tmos2.slice_sum_order_model(np.array([0], np.int32), y, 1, 1, 1, 8)
+    assert got.tobytes() == v[0].tobytes()
+
+
+def test_slice_sum_twin_contract_on_the_cpu():
+    """R = 2 (every offset clamps to row 0), W = 1, n = 0 (0.0), offsets
+    below 0 and past R - 2: the twin, the model and numpy agree."""
+    for rows, width in ((2, 1), (2, 384), (640, 383), (5, 4)):
+        planes = _cancelling_planes(rows, width, seed=rows + width)
+        for off in (np.array([], np.int32),
+                    np.array([-7, 0, rows - 2, rows - 1, 10 ** 6], np.int32)):
+            got = tm2.slice_sum(torch.from_numpy(off),
+                                torch.from_numpy(planes))
+            assert got.shape == (1, 1) and got.dtype == torch.float32
+            terms = tmos2.slice_terms(np.clip(off, 0, rows - 2), planes)
+            tol = 1e-5 * np.abs(terms).sum()
+            assert abs(float(got) - terms.sum()) <= tol
+            model = tmos2.slice_sum_order_model(off, planes, 3)
+            assert abs(float(model) - terms.sum()) <= tol
+            if off.size == 0:
+                assert float(got) == 0.0 and float(model) == 0.0
 
 
 def test_probe_entry_points_need_a_named_device_without_a_gpu(monkeypatch):
