@@ -10,20 +10,29 @@ Phases (any failure raises, so the script never exits 0 after one):
      sm_90a (one nvcc per source, all at once) into one library under
      lidar_processing_tpu_torch/build/, and, at the same time, the host
      C++ module (native/lidar_native.cpp) with g++;
-  3. main path, first, so that no measurement below slows its host-bound
-     step: 8 full-size synthetic street scenes (seeds 0-7) written as PCD
-     files, replayed through ReplayStream on the card; every frame must
-     report overflow 0, one outline per cluster and a cluster count in the
-     scene's target range, and the run must have launched tier_min_d2
-     twice a step (one per tier table), union_find once and min_d2 never,
-     and called the native chi_hulls_batch once a frame;
+  3. main path, first, so that no measurement below slows its host
+     stage: 8 full-size synthetic street scenes (seeds 0-7) written as PCD
+     files, replayed through ReplayStream on the card, on its compiled
+     step (runtime/compiled.py: the packed step captured once as a CUDA
+     graph and replayed a frame); every frame must report overflow 0, one
+     outline per cluster and a cluster count in the scene's target range;
+     the wrappers' counts, set to 0 before the stream is built and read
+     after its run, must hold the warm-up steps' and the capture's
+     launches and nothing more (no step ran eagerly after the capture);
+     the graph the run replayed must hold tier_min_d2_kernel twice (one
+     per tier table), union_find_kernel once and min_d2_kernel never
+     (its kernel nodes, read from CUDA's DOT print of that graph), and
+     the run must have replayed it once a step; nodes x replays are the
+     main path's launches in the kernels line; the native
+     chi_hulls_batch must be called once a frame;
   4. CUDA vs CPU: frame 0's cluster_fused on the card (kernels) and on the
      CPU (twins) from the same sorted inputs must agree bit for bit, and
      the two segmentations within max(2, n // 1000) labels; a small
      scene's cluster labels on the card equal an independent exact
      radius-graph connected-components reference (scipy);
   5. no host syncs inside one device step (torch's sync debug mode);
-  6. per-frame device / host / end-to-end times;
+  6. per-frame device (the stream's compiled step) / host / end-to-end
+     times;
   7. the batched step (device_frame_step_batched) over the 8 frames at
      B = 1, 4 and 8: every frame's FrameResult leaves and payload words
      at B = 4 and 8 equal its B = 1 results bit for bit; each batched
@@ -39,7 +48,21 @@ Phases (any failure raises, so the script never exits 0 after one):
      a replay paced at 10 Hz (its dispatch p50 and deadline misses, as
      ``run --realtime`` reports them), and the CLI's run (with an
      export), golden (2 frames, must pass) and
-     bench (B = 1, 4 and 8; its JSON line printed);
+     bench (B = 1, 4 and 8; its JSON line printed), each on the compiled
+     step;
+  8b. the compiled step (runtime/compiled.py) against the eager step: for
+     B = 1, 4 and 8 on the stixel backend and B = 1 and 8 on the
+     cellgraph backend (cell_capacity 128), a CompiledStep of the batched
+     step and its payloads over frames 0-7: every replay's FrameResult
+     leaves and payload words equal the eager step's bit for bit; each
+     graph holds {tier_min_d2_kernel: 2, union_find_kernel: 1,
+     min_d2_kernel: 0} kernel nodes (stixel) or none of them (cellgraph),
+     and its replays add nothing to the wrappers' counts; each graph is
+     released after its check, and so is the main path's (ReplayStream
+     .release(); captured again in phase 15b): with graphs in the
+     process, torch.profiler kept fewer of the probes' kernel events, so
+     kernel_bench.profiled refuses to run while one is held, and no graph
+     replay is profiled before the probes (that too cost them events);
   9. the cellgraph backend and the single-device ops, at DEFAULT_CONFIG
      full width with clustering_backend "cellgraph" and cell_capacity 128:
      the 8 frames through ReplayStream (overflow 0, cluster labels and
@@ -148,6 +171,18 @@ Phases (any failure raises, so the script never exits 0 after one):
      count), warm ms (events around back-to-back calls) and host us a
      call (the host clock, no synchronise in the loop), and so is each
      library call beside a probe kernel;
+  15b. the compiled step's profiles and turns, after the probes, whose
+     profiles need no graph held: torch.profiler on the main path's graph,
+     one cudaGraphLaunch and no kernel launch call a step against the
+     eager step's ~2880, and a replay running as many tier_min_d2_kernel
+     and union_find_kernel as the graph holds nodes of; then
+     tools/step_bench.py's turns (eager, graph,
+     graph, eager) at B = 1, 4 and 8 and for a cellgraph B = 1 step:
+     device p50, ms a frame, host us a dispatch, idle share, kernels and
+     launch calls (one cudaGraphLaunch and no kernel launch call a
+     replay), capture seconds and graph pool against the eager step's
+     peak, end to end through ReplayStream on each route, and an eager
+     B = 8 step's ops by device time;
   16. no jax imported.
 
 Prints each phase's seconds, the kernels' JSON record, the card's name and
@@ -173,7 +208,8 @@ import numpy as np
 
 from lidar_processing_tpu_torch.tools.kernel_bench import (
     HOST_CALLS, DeviceMs, cuda_ms, device_ms, fmt_ms, fmt_timing, host_us,
-    kernels_per_call, profiled, timing, warm_ms)
+    kernel_counts, kernels_per_call, launches_of, profiled, timing, warm_ms)
+from lidar_processing_tpu_torch.tools.step_bench import top_ops
 
 HERE = Path(__file__).resolve().parent
 PARENT = HERE / "build" / "parent"  # an earlier commit, for parent_turns
@@ -185,6 +221,9 @@ CSRC = "lidar_processing_tpu_torch/csrc"
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
 CDIST = "donot_use_mm_for_euclid_dist"
+# each main-path kernel wrapper's CUDA kernel, as torch.profiler names it
+KERNEL_OF = {"tier_min_d2": "tier_min_d2_kernel",
+             "union_find": "union_find_kernel", "min_d2": "min_d2_kernel"}
 BATCHES = (4, 8)           # frames per batched step, beside B = 1
 KERNELS_B1_MAX = 2995      # CUDA kernels a B = 1 step: 2852 measured + 5%
 CELL_CAPACITY = 128        # the cellgraph phase's cell_capacity (shipped: 64)
@@ -1351,24 +1390,31 @@ def run_main_path(tmp: Path, device):
     from lidar_processing_tpu_torch.kernels.tier_min_d2 import tier_min_d2
     from lidar_processing_tpu_torch.kernels.union_find import cc_labels
     from lidar_processing_tpu_torch.ops.hull_native import chi_hulls_batch
+    from lidar_processing_tpu_torch.runtime.compiled import WARMUP_STEPS
     from lidar_processing_tpu_torch.runtime.stream import ReplayStream
-
-    stream = ReplayStream(DEFAULT_CONFIG, data_dir=str(tmp), device=device)
-    stream.warmup()                       # first run: kernel build/caches
-    t0 = time.perf_counter()
-    stream.warmup()
-    warm_s = time.perf_counter() - t0
 
     kernels = {"tier_min_d2": tier_min_d2, "union_find": cc_labels,
                "min_d2": min_d2_planar}
     for fn in kernels.values():
         fn.launches = 0
+    stream = ReplayStream(DEFAULT_CONFIG, data_dir=str(tmp), device=device)
+    stream.warmup()                       # first run: capture, kernel build
+    t0 = time.perf_counter()
+    stream.warmup()
+    warm_s = time.perf_counter() - t0
+
+    graph = stream.graph
+    if graph is None:
+        raise AssertionError("ReplayStream did not run on the compiled step")
     chi_hulls_batch.calls = chi_hulls_batch.fallbacks = 0
     torch.cuda.reset_peak_memory_stats(device)
+    graph.replays = 0
     t0 = time.perf_counter()
     results = list(stream.run(N_FRAMES))  # run() warms up with one step
     run_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    wrapped = {name: fn.launches for name, fn in kernels.items()}
+    nodes = {name: graph.kernel_nodes(k) for name, k in KERNEL_OF.items()}
+    launches = {name: n * graph.replays for name, n in nodes.items()}
     route = {"chi_hulls_batch": chi_hulls_batch.calls,
              "fallbacks": chi_hulls_batch.fallbacks}
     e2e_ms = (run_s - warm_s) * 1e3 / N_FRAMES
@@ -1392,15 +1438,27 @@ def run_main_path(tmp: Path, device):
                 np.isfinite(o).all() and o.shape[1:] == (2,)
                 for o in out.outlines):
             raise AssertionError(f"frame {m.frame_id}: malformed outputs")
-    steps = N_FRAMES + WARMUP_FRAMES
-    want = {"tier_min_d2": 2 * steps, "union_find": steps, "min_d2": 0}
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    # from Python: the warm-up steps and the capture, then replays only
+    calls = WARMUP_STEPS + 1
+    want = {"tier_min_d2": 2 * calls, "union_find": calls, "min_d2": 0}
+    if wrapped != want:
+        raise AssertionError(f"the wrappers launched {wrapped} from Python, "
+                             f"expected {want}")
+    check_kernel_nodes(graph, {"tier_min_d2": 2, "union_find": 1,
+                               "min_d2": 0}, "the main path's graph")
+    if graph.replays != N_FRAMES + WARMUP_FRAMES:
+        raise AssertionError(f"{graph.replays} replays for "
+                             f"{N_FRAMES + WARMUP_FRAMES} steps")
     if route["chi_hulls_batch"] != N_FRAMES:
         raise AssertionError(f"{route['chi_hulls_batch']} native "
                              f"chi_hulls_batch calls for {N_FRAMES} frames")
     log(f"main path: {N_FRAMES} frames + {WARMUP_FRAMES} warmup through "
-        f"ReplayStream; launches {launches}; host outlines: "
+        f"ReplayStream on its compiled step (captured in "
+        f"{graph.capture_s:.3f} s, pool {graph.pool_bytes / 2**20:.0f} "
+        f"MiB); wrappers' launches from Python (counts set to 0 before the "
+        f"stream was built) {wrapped}; the graph's kernel nodes {nodes} x "
+        f"{graph.replays} replays in the run = launches {launches}; host "
+        f"outlines: "
         f"{route['chi_hulls_batch']} native chi_hulls_batch calls, "
         f"{route['fallbacks']} degenerate clusters sent down the single "
         f"chain; peak device memory "
@@ -1531,14 +1589,12 @@ def count_host_syncs(stream) -> int:
 
 
 def time_frames(stream, results, device):
-    """p50 device ms/frame (CUDA events around the step) and p50 host
-    ms/frame (the stream's host decode + outlines)."""
-    from lidar_processing_tpu_torch.runtime.pipeline import (
-        device_frame_step_packed)
+    """p50 device ms/frame (CUDA events around the stream's step, the
+    compiled step's replay) and p50 host ms/frame (the stream's host
+    decode + outlines)."""
     dev_ms = []
     for fid in range(stream.num_frames):
-        dev_ms.append(cuda_ms(lambda: device_frame_step_packed(
-            stream.xyz[fid], stream.mask[fid], stream.config), reps=3))
+        dev_ms.append(cuda_ms(lambda: stream._step(fid), reps=3))
     host_ms = [m.t_host_ms for _, m in results]
     return statistics.median(dev_ms), statistics.median(host_ms)
 
@@ -1868,6 +1924,128 @@ def log_step_kernels(stream) -> dict:
     return {1: out, N_FRAMES: out8}
 
 
+def step_and_payload(xyzs, masks, config):
+    """The batched step and its payloads, the graph phase's capture."""
+    from lidar_processing_tpu_torch.runtime.pipeline import (
+        device_frame_step_batched, pack_host_payload)
+    fr = device_frame_step_batched(xyzs, masks, config)
+    return fr, pack_host_payload(fr, config)
+
+
+def check_graph_steps(stream) -> None:
+    """Replays against eager steps, bit for bit, with the kernel nodes of
+    each graph (module docstring, phase 8b)."""
+    import torch
+    from lidar_processing_tpu_torch.kernels.min_d2 import min_d2_planar
+    from lidar_processing_tpu_torch.kernels.tier_min_d2 import tier_min_d2
+    from lidar_processing_tpu_torch.kernels.union_find import cc_labels
+    from lidar_processing_tpu_torch.runtime.compiled import CompiledStep
+    wrappers = (tier_min_d2, cc_labels, min_d2_planar)
+    x, m = stream.xyz[:N_FRAMES], stream.mask[:N_FRAMES]
+    for backend, cfg, batches, want in (
+            ("stixel", stream.config, (1,) + BATCHES,
+             {"tier_min_d2": 2, "union_find": 1, "min_d2": 0}),
+            ("cellgraph", cellgraph_config(), (1, N_FRAMES),
+             {"tier_min_d2": 0, "union_find": 0, "min_d2": 0})):
+        for b in batches:
+            step = CompiledStep(step_and_payload, cfg, b, stream.device)
+            check_kernel_nodes(step, want, f"{backend} B={b}")
+            for lo in range(0, N_FRAMES, b):
+                for fn in wrappers:
+                    fn.launches = 0
+                got = step(x[lo:lo + b], m[lo:lo + b])
+                if any(fn.launches for fn in wrappers):
+                    raise AssertionError(f"{backend} B={b}: a replay "
+                                         f"launched kernels from Python")
+                ref = step_and_payload(x[lo:lo + b], m[lo:lo + b], cfg)
+                for i, (g, w) in enumerate(zip(
+                        torch.utils._pytree.tree_leaves(got),
+                        torch.utils._pytree.tree_leaves(ref))):
+                    if not same_bits(g, w):
+                        raise AssertionError(
+                            f"{backend} B={b} frames {lo}-{lo + b - 1}: leaf "
+                            f"{i} of the replay differs from the eager step")
+            log(f"compiled step, {backend} B={b}: every replay over frames "
+                f"0-{N_FRAMES - 1} == the eager step bit for bit (FrameResult "
+                f"leaves and payload words); its graph holds {want} kernel "
+                f"nodes, and replays launched nothing from Python; capture "
+                f"{step.capture_s:.3f} s, pool {step.pool_bytes / 2**20:.0f} "
+                f"MiB")
+            step.release()
+            del step, got, ref
+            torch_empty_cache()
+
+
+def check_kernel_nodes(step, want: dict, what: str) -> None:
+    """A CompiledStep's graph holds `want` kernel nodes ({wrapper name:
+    nodes} of KERNEL_OF's kernels); a mismatch shows a kernel node of the
+    graph's DOT print."""
+    from lidar_processing_tpu_torch.runtime.compiled import dot_nodes
+    got = {name: step.kernel_nodes(k) for name, k in KERNEL_OF.items()}
+    if got != want:
+        nodes = dot_nodes(step.dot())
+        sample = next((n for n in nodes if "KERNEL" in n), nodes[:1])
+        raise AssertionError(f"{what}: kernel nodes {got}, not {want}; "
+                             f"{len(nodes)} nodes, e.g. {str(sample)[:600]}")
+
+
+def check_graph_launches(stream) -> None:
+    """torch.profiler on the main path's graph (the stream's B = 1 packed
+    step): one cudaGraphLaunch and no kernel launch call a step, against
+    the eager step's launch calls; a replay runs each hand kernel as many
+    times as the graph holds nodes of it."""
+    from lidar_processing_tpu_torch.runtime.pipeline import (
+        device_frame_step_packed)
+    from lidar_processing_tpu_torch.tools.step_bench import step_kernels
+    x, m, cfg = stream.xyz[0], stream.mask[0], stream.config
+    eager = step_kernels(lambda: device_frame_step_packed(x, m, cfg))
+    graph = step_kernels(lambda: stream._step(0))
+    if (graph["graph_launches"], graph["launch_calls"]) != (1, 0):
+        raise AssertionError(f"a replayed step: {graph}")
+    _, ran = kernel_counts(lambda: stream._step(0))
+    inside = {k: launches_of(ran, k) for k in ("tier_min_d2_kernel",
+                                               "union_find_kernel")}
+    nodes = {k: stream.graph.kernel_nodes(k) for k in inside}
+    if inside != nodes or nodes != {"tier_min_d2_kernel": 2,
+                                    "union_find_kernel": 1}:
+        raise AssertionError(f"a replay ran {inside}; its graph holds "
+                             f"{nodes}")
+    log(f"main path's graph (torch.profiler, frame 0): "
+        f"{graph['graph_launches']} cudaGraphLaunch and "
+        f"{graph['launch_calls']} kernel launch calls a "
+        f"step, {graph['kernels']} CUDA kernels and {graph['copies']} copies "
+        f"and fills inside, {graph['busy_ms']:.3f} ms of device time, "
+        f"{inside} of them the hand kernels (== the graph's nodes); "
+        f"the eager step: "
+        f"{eager['launch_calls']} kernel launch calls, {eager['kernels']} "
+        f"kernels, {eager['busy_ms']:.3f} ms")
+
+
+def torch_empty_cache() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_graph_turns(stream, smi) -> None:
+    """The compiled step's profiles and turns (module docstring, phase
+    15b), on frames written anew."""
+    from lidar_processing_tpu_torch.tools.step_bench import (format_routes,
+                                                             route_turns)
+    check_graph_launches(stream)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_frames(Path(tmp))
+        result = route_turns(Path(tmp), N_FRAMES)
+    for name, res in result["cases"].items():
+        launch = (res["graph"]["graph_launches"],
+                  res["graph"]["launch_calls"])
+        if launch != (1, 0):
+            raise AssertionError(f"{name} graph: {launch} launch calls")
+    log(f"eager against graph in turns ({smi}; host CPU {host_cpu()}):\n"
+        + format_routes(result))
+
+
 def cellgraph_config(capacity: int = CELL_CAPACITY):
     """DEFAULT_CONFIG at full width on the cellgraph backend."""
     import dataclasses
@@ -1899,6 +2077,7 @@ def run_cellgraph_path(tmp: Path, device, stixel_results):
     t0 = time.perf_counter()
     results = list(stream.run(N_FRAMES))
     run_s = time.perf_counter() - t0
+    stream.release()      # the profiles below need no graph held
     launches = {name: fn.launches for name, fn in kernels.items()}
     stixel = {m.frame_id: out for out, m in stixel_results}
     for out, m in results:
@@ -2027,26 +2206,6 @@ def measure_cellgraph(stream, smi) -> dict:
         "kernels each op launched): " + top_ops(
             lambda: device_frame_step_packed(x[0], m[0], cfg)))
     return {**out, "p50_ms": p50, "ms_per_frame_b8": best, "peak": peak}
-
-
-def top_ops(step, n: int = 8) -> str:
-    """The n PyTorch ops whose kernels take the most device time in one
-    call of `step`, with their share of the call's device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                  for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CPU
-                  and e.self_device_time_total > 0), reverse=True)
-    total = sum(ms for ms, _, _ in ops) or 1.0
-    return ", ".join(f"{key} {ms:.3f} ms ({100 * ms / total:.1f}%, {count} "
-                     f"calls)" for ms, count, key in ops[:n])
 
 
 def check_run_frame(stream) -> None:
@@ -2478,13 +2637,17 @@ def main() -> None:
             count_host_syncs(stream)
         with phase("timings"):
             dev_ms, host_ms = time_frames(stream, results, device)
-        log(f"per frame ({smi}): device p50 {dev_ms:.3f} ms, host p50 "
-            f"{host_ms:.1f} ms, end to end {e2e_ms:.1f} ms "
+        log(f"per frame ({smi}): device p50 (compiled step) {dev_ms:.3f} "
+            f"ms, host p50 {host_ms:.1f} ms, end to end {e2e_ms:.1f} ms "
             f"(build {build_s:.1f} s)")
         with phase("batched step"):
             batched_calls = run_batched_path(stream)
         with phase("host stage and entry points"):
             check_host_stage(Path(tmp), stream, route, native_s, smi)
+        with phase("compiled step"):
+            check_graph_steps(stream)
+            stream.release()          # captured again in phase 15b
+            torch_empty_cache()
         with phase("cellgraph and single-device ops"):
             run_cellgraph_phase(Path(tmp), device, results, smi)
         with phase("sharded and spatial"):
@@ -2506,12 +2669,14 @@ def main() -> None:
         frame_edges, frame_pairs = check_real_frame(device, res, dbg)
         parent_turns(frame_pairs, smi)
         probe_launches = run_probe_path(device, frame_edges)
+    with phase("compiled step: profiles and turns"):
+        run_graph_turns(stream, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     import torch
-    # rows 1-2: the main path's launches and the parallel path's;
-    # union_find's also the hybrid path's
+    # rows 1-2: the main path's launches (its graph's kernel nodes x its
+    # replays) and the parallel path's; union_find's also the hybrid path's
     counts = {**launches, **probe_launches,
               "tier_min_d2": launches["tier_min_d2"]
               + spatial_launches["tier_min_d2"],

@@ -1,19 +1,23 @@
 """Headline benchmark of the PyTorch port: frames/sec on one GPU.
 
     python -m lidar_processing_tpu_torch.bench [--device cuda] \\
-        [--data-dir DIR] [--frames N] [--batches 4 8] [--golden FILE]
+        [--data-dir DIR] [--frames N] [--batches 4 8] [--golden FILE] \\
+        [--eager]
     python -m lidar_processing_tpu_torch bench ...      # the same, via the CLI
 
 The counterpart of the repo's root ``bench.py`` (the JAX package's),
 over the frames of ``--data-dir`` (default: the checkout's ``data/``, the
 KITTI sequence; FileNotFoundError when absent, as there). It covers all
 three reference stages (segment -> cluster -> polygonize,
-ref: src/processor.cpp:135-219):
+ref: src/processor.cpp:135-219). On the card every step is the compiled
+step (runtime/compiled.py: ``device_frame_step_batched`` captured once per
+B as a CUDA graph and replayed, as root bench.py jits its step);
+``--eager`` times the eager step, which the CPU always runs:
 
-  * device throughput at B=1: ``device_frame_step`` over every frame,
+  * device throughput at B=1: the step over every frame,
     waited for once per pass, best of 3 passes;
   * batched device throughput: for each B of ``--batches`` (4 and 8),
-    ``device_frame_step_batched`` over the resident frames B at a time
+    the step over the resident frames B at a time
     (the frame count rounded down to a multiple of B; when B exceeds it,
     one batch of the frames repeated cyclically), ms per frame of one
     pass after one warmup call, as root bench.py times its vmap. B is
@@ -34,8 +38,9 @@ ref: src/processor.cpp:135-219):
 that gave it, ``ms_per_frame_b1`` the B=1 number; ``value`` (frames/s)
 and ``vs_baseline`` follow from the best, as in root bench.py. Prints ONE
 JSON line with the root bench.py's keys (``backend`` is "cuda" or "cpu",
-``device`` names the card); ``vs_baseline`` is relative to the reference's
-10 Hz budget (ref: README.md:4). ``golden_154`` comes only from a golden
+``device`` names the card, ``step`` is "graph" or "eager");
+``vs_baseline`` is relative to the reference's 10 Hz budget
+(ref: README.md:4). ``golden_154`` comes only from a golden
 file of the port given with ``--golden`` (tools/golden_run.py writes one),
 never from the root GOLDEN.json, which holds the JAX package's TPU
 figures.
@@ -66,22 +71,34 @@ def main(argv=None) -> dict:
                     help="frames per batched step to measure beside B=1 "
                          "(default 4 8; none: B=1 only)")
     ap.add_argument("--golden", default=None)
+    ap.add_argument("--eager", action="store_true",
+                    help="time the eager step (every op launched from "
+                         "Python) instead of the compiled step")
     args = ap.parse_args(argv)
     config = DEFAULT_CONFIG
 
     from .oracle import diff as odiff
     from .oracle.reference import (fec_cluster, gpf_segment,
                                    radius_cc_cluster)
-    from .runtime.pipeline import device_frame_step, device_frame_step_batched
+    from .runtime.compiled import batched_step, uses_graph
+    from .runtime.pipeline import device_frame_step_batched
     from .runtime.stream import ReplayStream
     from .types import SEG_OBSTACLE
 
-    stream = ReplayStream(config, data_dir=args.data_dir, device=args.device)
+    stream = ReplayStream(config, data_dir=args.data_dir, device=args.device,
+                          eager=args.eager)
     dev = stream.device
     n_frames = min(args.frames or stream.num_frames, stream.num_frames)
 
+    def stepper(b: int):
+        """The batched step of B frames on the route asked for."""
+        return batched_step(device_frame_step_batched, config, b, dev,
+                            args.eager)
+
+    step_b1 = stepper(1)
+
     def step(f: int):
-        return device_frame_step(stream.xyz[f], stream.mask[f], config)
+        return step_b1(stream.xyz[f:f + 1], stream.mask[f:f + 1])
 
     def pass_ms(calls, n: int) -> float:
         """ms per frame of one pass of `calls` (n frames), waited for at
@@ -103,9 +120,9 @@ def main(argv=None) -> dict:
     for b in args.batches:
         n = max(b, n_frames // b * b)
         ids = torch.arange(n, device=dev) % n_frames
-        calls = [functools.partial(device_frame_step_batched,
-                                   stream.xyz[ids[i:i + b]],
-                                   stream.mask[ids[i:i + b]], config)
+        step_b = stepper(b)
+        calls = [functools.partial(step_b, stream.xyz[ids[i:i + b]],
+                                   stream.mask[ids[i:i + b]])
                  for i in range(0, n, b)]
         calls[0]()
         stream.sync()
@@ -135,8 +152,8 @@ def main(argv=None) -> dict:
         n = int(stream.counts[f])
         xyz = stream.xyz[f, :n].cpu().numpy()
         fr = step(f)
-        seg_dev = fr.seg.labels.cpu().numpy()[:n]
-        cl_dev = fr.clustering.labels.cpu().numpy()[:n]
+        seg_dev = fr.seg.labels[0].cpu().numpy()[:n]
+        cl_dev = fr.clustering.labels[0].cpu().numpy()[:n]
         oseg = gpf_segment(xyz, config.segmentation).labels
         obst = np.flatnonzero(oseg == SEG_OBSTACLE)
         ious.append(odiff.ground_mask_iou(seg_dev, oseg))
@@ -163,6 +180,7 @@ def main(argv=None) -> dict:
         "cluster_f1_min": float(min(f1s)),
         "fec_quality05_f1_min": float(min(fec_f1s)),
         "backend": dev.type,
+        "step": "graph" if uses_graph(dev, args.eager) else "eager",
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
     }

@@ -13,10 +13,15 @@ per-frame metrics logging and optional visualization export
     python -m lidar_processing_tpu_torch golden           # parity run (tools/golden_run.py)
     python -m lidar_processing_tpu_torch bench            # benchmark (bench.py)
     python -m lidar_processing_tpu_torch bench --batches 4 8   # B frames a step
+    python -m lidar_processing_tpu_torch run --eager      # the eager step
 
 Every subcommand takes ``--device`` (default ``cuda``; there is no silent
-CPU fallback: with no GPU it raises unless given ``--device cpu``) and
-``--data-dir`` (default: the checkout's ``data/``); ``bench`` also takes
+CPU fallback: with no GPU it raises unless given ``--device cpu``),
+``--data-dir`` (default: the checkout's ``data/``) and ``--eager``: on the
+card every subcommand runs the compiled step (runtime/compiled.py: the
+step captured once as a CUDA graph and replayed, as the JAX package jits
+it), and ``--eager`` the eager step, every op launched from Python, which
+the CPU always runs; ``bench`` also takes
 ``--frames``, ``--batches`` (the batch sizes B measured beside B=1, each
 step taking B frames at once; default 4 8: ``ms_per_frame`` is the best
 of them, ``batch`` its B) and ``--golden FILE``; ``golden`` ``--frames``
@@ -37,7 +42,9 @@ def _cmd_run(args) -> int:
     from .io.export import export_frame
     from .runtime.stream import ReplayStream
 
-    stream = ReplayStream(DEFAULT_CONFIG, data_dir=args.data_dir, device=args.device)
+    stream = ReplayStream(DEFAULT_CONFIG, data_dir=args.data_dir,
+                          device=args.device,
+                          eager=args.eager)
     n = args.frames if args.frames else stream.num_frames
     export_ids = (set(int(x) for x in args.export_frames.split(","))
                   if args.export_frames else set())
@@ -98,6 +105,9 @@ def main(argv=None) -> int:
     run.add_argument("--export-dir", default=None)
     run.add_argument("--export-frames", default=None,
                      help="comma-separated frame ids to export")
+    run.add_argument("--eager", action="store_true",
+                     help="the eager step instead of the compiled step "
+                          "(one CUDA graph replay a frame)")
     sub.add_parser("bench", add_help=False,
                    help="headline benchmark (one JSON line): frames/s at "
                         "B=1 and batched B (--batches, default 4 8)")

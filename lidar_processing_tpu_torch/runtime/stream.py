@@ -8,13 +8,19 @@ keep-last-2 QoS (ref: src/processor.cpp:69-85). Here the frames are
 preloaded into device memory once and the replay loop indexes into the
 resident buffer, so the steady state has no host->device traffic.
 
-Each frame's packed payload (runtime/pipeline.py) is copied into a pinned
-host buffer with ``non_blocking=True`` on the step's stream, and a CUDA
-event marks when it has landed; at most ``queue_depth`` frames are in
-flight, and the host decodes the oldest while the device runs the next.
-Realtime mode keeps the DDS depth-``queue_depth`` semantics with a
-publication clock: a slow consumer sees dropped frames, not growing lag.
-On a CPU device the payload is already on the host and no event is used.
+On the card each step is the compiled step (runtime/compiled.py): the
+packed step captured once as a CUDA graph in ``warmup()`` and replayed, as
+the JAX stream jits its ``_step``; ``eager=True`` asks for the eager
+step, which the CPU always runs. Each frame's packed payload
+(runtime/pipeline.py) is copied into a pinned host buffer with
+``non_blocking=True`` on the step's stream, and a CUDA event marks when it
+has landed; the copy is enqueued before the next step, so stream order
+keeps it from the replay that overwrites the graph's static output. At
+most ``queue_depth`` frames are in flight, and the host decodes the oldest
+while the device runs the next. Realtime mode keeps the DDS
+depth-``queue_depth`` semantics with a publication clock: a slow consumer
+sees dropped frames, not growing lag. On a CPU device the payload is
+cloned on the host and no event is used.
 Per-stage metrics mirror the reference's timing logs
 (ref: src/processor.cpp:167-171,204-207,218-219).
 """
@@ -33,7 +39,8 @@ from ..io.dataset import list_frames, preload_padded
 from ..ops import stixel as _stixel
 from ..ops.segmentation import gpf_segment
 from ..types import SEG_OBSTACLE
-from .pipeline import device_frame_step_packed, host_outputs_packed
+from . import compiled
+from .pipeline import device_frame_step_packed_batched, host_outputs_packed
 
 
 @dataclasses.dataclass
@@ -70,6 +77,8 @@ class ReplayStream:
 
     Runs on the card (``device=None`` means ``cuda``, and raises where
     there is none); the CPU only when the caller passes ``device="cpu"``.
+    The step is ``compiled.batched_step``'s: the compiled step on the card
+    unless ``eager``, the eager step on the CPU.
 
     Usage:
         stream = ReplayStream(config, data_dir)
@@ -79,7 +88,8 @@ class ReplayStream:
 
     def __init__(self, config: EngineConfig,
                  data_dir: Optional[str] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 eager: bool = False):
         self.config = config
         # the card unless the caller names a device: no silent CPU fallback
         self.device = torch.device(device if device is not None else "cuda")
@@ -98,10 +108,30 @@ class ReplayStream:
         self.counts = counts
         self.num_frames = xyz.shape[0]
         self._pinned: List[torch.Tensor] = []
+        self.eager = eager
+        self._stepper = None      # the B = 1 step, built by the first step
 
     def _step(self, fid: int) -> torch.Tensor:
-        return device_frame_step_packed(self.xyz[fid], self.mask[fid],
-                                        self.config)
+        if self._stepper is None:
+            self._stepper = compiled.batched_step(
+                device_frame_step_packed_batched, self.config, 1,
+                self.device, self.eager)
+        return self._stepper(self.xyz[fid:fid + 1],
+                             self.mask[fid:fid + 1])[0]
+
+    @property
+    def graph(self) -> Optional[compiled.CompiledStep]:
+        """The compiled step the stream replays (None before the first
+        step and on the eager route)."""
+        return (self._stepper
+                if isinstance(self._stepper, compiled.CompiledStep) else None)
+
+    def release(self) -> None:
+        """Free the compiled step's graph; the next step captures it
+        again."""
+        if self.graph is not None:
+            self.graph.release()
+        self._stepper = None
 
     def sync(self) -> None:
         """Wait for the work queued on the stream's device."""
@@ -109,7 +139,8 @@ class ReplayStream:
             torch.cuda.synchronize(self.device)
 
     def warmup(self) -> None:
-        """One step end to end: builds the kernels and warms the caches."""
+        """One step end to end: builds the kernels, warms the caches and,
+        the first time on the compiled route, captures the step."""
         self._step(0)
         self.sync()
 
@@ -131,7 +162,8 @@ class ReplayStream:
     def _to_host(self, payload: torch.Tensor, slot: int):
         """Start the payload's copy to the host; (host tensor, event)."""
         if payload.device.type != "cuda":
-            return payload, None
+            # a compiled step's output is overwritten by the next step
+            return payload.clone(), None
         while len(self._pinned) <= slot:
             self._pinned.append(torch.empty(payload.shape, dtype=payload.dtype,
                                             pin_memory=True))

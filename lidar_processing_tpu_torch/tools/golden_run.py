@@ -1,7 +1,7 @@
 """Golden parity run of the PyTorch port: device pipeline vs host oracles.
 
     python -m lidar_processing_tpu_torch.tools.golden_run [--device cuda] \\
-        [--data-dir DIR] [--frames N] [--out PATH]
+        [--data-dir DIR] [--frames N] [--out PATH] [--eager]
     python -m lidar_processing_tpu_torch golden ...     # the same, via the CLI
 
 The counterpart of the repo's ``tools/golden_run.py`` (the JAX package's),
@@ -23,8 +23,10 @@ checkout's ``data/``) and the same exit code:
      minimum minus 0.05; over the run its mean must reach the mean band
      minimum.
 
-The device step runs on the card unless ``--device`` names another; the
-radius-CC and FEC oracles run through the port's native module
+The device step runs on the card unless ``--device`` names another, there
+as the compiled step (runtime/compiled.py, one CUDA graph replayed a
+frame) unless ``--eager`` asks for the eager step, which the CPU always
+runs; the radius-CC and FEC oracles run through the port's native module
 (ops/hull_native.py). Writes a summary to ``--out`` (default
 ``chiprun_out/golden_torch.json`` in the checkout, never the root
 GOLDEN.json, which holds the JAX package's TPU run) and returns nonzero
@@ -66,17 +68,21 @@ def main(argv=None) -> int:
     ap.add_argument("--data-dir", default=None)
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--out", default=str(DEFAULT_OUT))
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager step instead of the compiled step")
     args = ap.parse_args(argv)
 
     from ..io.dataset import list_frames, load_frame
     from ..io.synthetic import pad_frame
     from ..oracle import diff as odiff
     from ..oracle import reference as orc
-    from ..runtime.pipeline import device_frame_step, host_outputs
-    from ..types import SEG_OBSTACLE
+    from ..runtime.compiled import batched_step
+    from ..runtime.pipeline import device_frame_step_batched, host_outputs
+    from ..types import SEG_OBSTACLE, frame_of
 
     cfg = DEFAULT_CONFIG
     dev = resolve_device(args.device)
+    step = batched_step(device_frame_step_batched, cfg, 1, dev, args.eager)
     paths = list_frames(args.data_dir) if args.data_dir else list_frames()
     frames = paths[: args.frames]
 
@@ -92,8 +98,8 @@ def main(argv=None) -> int:
         xyz, _ = load_frame(path)
         n = xyz.shape[0]
         x, m = pad_frame(xyz, cfg.pipeline.max_points)
-        fr = device_frame_step(torch.from_numpy(x).to(dev),
-                               torch.from_numpy(m).to(dev), cfg)
+        fr = frame_of(step(torch.from_numpy(x)[None].to(dev),
+                           torch.from_numpy(m)[None].to(dev)), 0)
         out = host_outputs(fr, cfg, n)
 
         # 1. segmentation IoU

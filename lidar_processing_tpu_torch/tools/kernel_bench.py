@@ -7,7 +7,8 @@ Timing helpers, shared with chip_smoke.py: ``cuda_ms`` (CUDA events
 around isolated calls), ``device_ms`` (torch.profiler's device time of a
 call, retried until a profile keeps every call's kernel events),
 ``warm_ms`` (CUDA events around back-to-back calls), ``host_us`` (the
-host clock a call, no synchronise in the loop) and ``kernels_per_call``.
+host clock a call, no synchronise in the loop), ``kernels_per_call``, and
+``kernel_counts`` (the kernels one run ran, graph replays included).
 
 The turns: the inputs are made once, then each tree measures its own
 kernels on them in a fresh process, its root first on ``sys.path``, in
@@ -82,9 +83,15 @@ def profiled(fn, reps: int, warmup: bool = True):
     """torch.profiler's key averages (CUDA activity) of `reps` calls of
     fn(), recorded after a warm-up step of as many calls whose events are
     dropped: a profile without one (`warmup` False) can lose its first
-    kernel events."""
+    kernel events. Raises while a CUDA graph of runtime/compiled.py is
+    held in the process: such profiles then lost kernel events (H100,
+    torch.profiler), so a count or time would be wrong."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
+    compiled = sys.modules.get("lidar_processing_tpu_torch.runtime.compiled")
+    if compiled is not None and compiled.live_graphs():
+        raise RuntimeError(f"profiled: {compiled.live_graphs()} CUDA graphs "
+                           f"are held in this process; release them first")
     fn()
     torch.cuda.synchronize()
     if not warmup:
@@ -190,6 +197,36 @@ def kernels_per_call(fn, reps: int = 5, tries: int = 5) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 most[e.key] = max(most.get(e.key, 0.0), e.count / reps)
     return most
+
+
+def kernel_counts(run):
+    """(run()'s result, {CUDA kernel name: launches}) of ONE call of run(),
+    as torch.profiler records it (CUDA activity; a replayed CUDA graph's
+    kernels are recorded node by node). A first profiler step, of one
+    throwaway kernel, is dropped: a profile can lose its first kernel
+    events. Profiling graph replays made later short profiles in the
+    same process (``profiled``) lose more of their events (H100), so
+    call this after those."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        out = run()
+        torch.cuda.synchronize()
+        prof.step()
+    return out, {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def launches_of(counts: dict, kernel: str) -> int:
+    """The launches of the CUDA kernel named `kernel` in a {kernel name:
+    launches} record."""
+    from lidar_processing_tpu_torch.runtime.compiled import names_kernel
+    return sum(n for key, n in counts.items() if names_kernel(key, kernel))
 
 
 def timing(fn, calls: int = HOST_CALLS) -> dict:

@@ -104,7 +104,9 @@ def test_bench_prints_one_json_line(frames, tmp_path, capsys):
                    "--golden", str(golden)])
     assert rc == 0
     (res,) = _json_lines(capsys.readouterr().out)
-    assert BENCH_KEYS | {"golden_154", "device"} == set(res)
+    assert BENCH_KEYS | {"golden_154", "device", "step"} == set(res)
+    # the CPU has no CUDA graphs: its route is the eager step
+    assert res["step"] == "eager"
     # batch: the best of B = 1 and the default batched B = 4, 8 (over the
     # 2 frames repeated cyclically)
     assert res["backend"] == "cpu" and res["batch"] in {1, 4, 8}
@@ -122,10 +124,22 @@ def test_bench_batch_prints_ms_per_frame(frames, capsys):
     out = bench_batch.main(["--device", "cpu", "--data-dir", str(frames),
                             "--batches", "2", "3"])
     lines = capsys.readouterr().out.splitlines()
-    assert lines[0] == "backend=cpu frames=2"
+    assert lines[0] == "backend=cpu step=eager frames=2"
     assert [ln.split(":")[0] for ln in lines[1:]] == ["B=  2", "B=  3"]
     assert all("ms/frame" in ln and "fps)" in ln for ln in lines[1:])
     assert sorted(out) == [2, 3] and all(v > 0 for v in out.values())
+
+
+def test_eager_flag_is_the_cpu_route(frames, capsys):
+    """``--eager`` asks for the eager step; on the CPU, which has no CUDA
+    graphs, it is the route taken with or without the flag."""
+    assert cli.main(["run", "--device", "cpu", "--eager", "--data-dir",
+                     str(frames), "--frames", "1"]) == 0
+    assert "1 frames: dispatch p50=" in capsys.readouterr().out
+    bench_batch.main(["--device", "cpu", "--eager", "--data-dir",
+                      str(frames), "--batches", "2"])
+    assert capsys.readouterr().out.splitlines()[0] == \
+        "backend=cpu step=eager frames=2"
 
 
 def test_golden_passes_on_a_small_frame(tmp_path, capsys):

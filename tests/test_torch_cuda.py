@@ -622,3 +622,88 @@ def test_four_nccl_ranks_equal_one_rank(cuda, tmp_path):
                 assert a.dtype == b.dtype and a.shape == b.shape, (rank, i)
                 assert a.tobytes() == b.tobytes(), (rank, i)
     assert int(want[1][2]) == 0 and int(want[1][1]) > 300
+
+
+def _step_and_payload(xyzs, masks, cfg):
+    fr = tpipe.device_frame_step_batched(xyzs, masks, cfg)
+    return fr, tpipe.pack_host_payload(fr, cfg)
+
+
+def _same_bits(a, b):
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_compiled_step_equals_eager_step(cuda, batch):
+    """A CompiledStep replay (the step captured as one CUDA graph) equals
+    the eager step bit for bit, every FrameResult leaf and payload word,
+    at B = 1 and 4; the graph holds two tier_min_d2_kernel nodes and one
+    union_find_kernel node, each replay runs them (torch.profiler) and
+    launches nothing from Python."""
+    from lidar_processing_tpu_torch.runtime.compiled import CompiledStep
+    from lidar_processing_tpu_torch.tools.kernel_bench import (kernel_counts,
+                                                               launches_of)
+    clouds = [street_scene(s, "small")[0] for s in range(4)]
+    x, m = (torch.from_numpy(np.stack(a)).to(cuda)
+            for a in zip(*(pad_frame(c, CAP) for c in clouds)))
+    step = CompiledStep(_step_and_payload, CFG, batch, cuda)
+    assert (step.kernel_nodes("tier_min_d2_kernel"),
+            step.kernel_nodes("union_find_kernel"),
+            step.kernel_nodes("min_d2_kernel")) == (2, 1, 0)
+    for lo in range(0, len(clouds), batch):
+        before = (ttm.tier_min_d2.launches, tuf.cc_labels.launches)
+        got, ran = kernel_counts(
+            lambda: step(x[lo:lo + batch], m[lo:lo + batch]))
+        assert (ttm.tier_min_d2.launches, tuf.cc_labels.launches) == before
+        assert (launches_of(ran, "tier_min_d2_kernel"),
+                launches_of(ran, "union_find_kernel")) == (2, 1)
+        want = _step_and_payload(x[lo:lo + batch], m[lo:lo + batch], CFG)
+        for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                        torch.utils._pytree.tree_leaves(want)):
+            assert _same_bits(g, w), lo
+
+
+def test_replay_stream_on_graphs_equals_eager(cuda, tmp_path):
+    """ReplayStream's compiled route (the default on the card) yields the
+    eager route's outputs frame for frame over 3 frames."""
+    from lidar_processing_tpu_torch.io.pcd import write_pcd_xyzi
+    from lidar_processing_tpu_torch.runtime.stream import ReplayStream
+    for seed in (0, 1):
+        write_pcd_xyzi(tmp_path / f"{seed:06d}.pcd",
+                       *street_scene(seed, "small"))
+    graph = ReplayStream(CFG, data_dir=str(tmp_path), device=cuda)
+    eager = ReplayStream(CFG, data_dir=str(tmp_path), device=cuda,
+                         eager=True)
+    got, want = list(graph.run(3)), list(eager.run(3))
+    assert graph.graph is not None and eager.graph is None
+    for (go, gm), (wo, wm) in zip(got, want):
+        assert gm.frame_id == wm.frame_id
+        for field in ("seg_labels", "cluster_labels", "num_clusters",
+                      "overflow", "outline_cluster_ids",
+                      "outline_z_extents"):
+            assert np.array_equal(getattr(go, field), getattr(wo, field))
+        assert len(go.outlines) == len(wo.outlines)
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(go.outlines, wo.outlines))
+
+
+def test_a_syncing_step_raises_at_capture(cuda):
+    """A step that waits on the card (a test double calling .item()) runs
+    eagerly but raises at capture, with CUDA's capture error; the card
+    still runs the eager step afterwards."""
+    from lidar_processing_tpu_torch.runtime.compiled import CompiledStep
+
+    def syncing(xyzs, masks, cfg):
+        out = tpipe.device_frame_step_packed_batched(xyzs, masks, cfg)
+        out[0, 0].item()
+        return out
+    with pytest.raises(Exception, match="captur"):
+        CompiledStep(syncing, CFG, 1, cuda)
+    x, m = (torch.from_numpy(a).to(cuda) for a in pad_frame(
+        street_scene(0, "small")[0], CAP))
+    assert torch.equal(device_frame_step_packed(x, m, CFG).cpu(),
+                       device_frame_step_packed(x.cpu(), m.cpu(), CFG))
