@@ -49,7 +49,10 @@ Phases (any failure raises, so the script never exits 0 after one):
      ``run --realtime`` reports them), and the CLI's run (with an
      export), golden (2 frames, must pass) and
      bench (B = 1, 4 and 8; its JSON line printed), each on the compiled
-     step;
+     step; the stage-timed replay runs on its two stage graphs (B = 1
+     segment_stage and cluster_stage, the latter holding
+     {tier_min_d2_kernel: 2, union_find_kernel: 1} nodes, the former
+     none), with an eager stream's stage times printed beside them;
   8b. the compiled step (runtime/compiled.py) against the eager step: for
      B = 1, 4 and 8 on the stixel backend and B = 1 and 8 on the
      cellgraph backend (cell_capacity 128), a CompiledStep of the batched
@@ -79,29 +82,43 @@ Phases (any failure raises, so the script never exits 0 after one):
      CPU; tools/measure_caps (8 frames), tier_hist (2) and profile_stages
      (8, with sub-stages) run to their end;
   10. sharded and spatial (parallel/), on one NCCL rank (world size 1) at
-     DEFAULT_CONFIG full width over the 8 frames: their densest x-band at
-     4 and 8 bands printed; cluster_spatial at 8 and 4 shards on each
-     frame's obstacle mask == stixel.cluster bit for bit, overflow 0, two
-     tier_min_d2 launches and one union_find a call (frame 0's 8-band
-     calls recorded and held against the twins bit for bit);
-     device_frame_step_spatial at 8 shards with block_points 131072 (the
-     step distributes every point): seg within max(2, n // 1000) labels
-     of device_frame_step, clustering == stixel.cluster of its own
-     obstacle mask, overflow and hull_overflow 0, n_small + n_large ==
-     num_clusters; sharded_batch_step at B = 8 == device_frame_step_batched
-     leaf for leaf; sharded_pipeline_2d on a 2 x 4 mesh (frames 0-1) ==
-     gpf_segment + stixel.cluster; the launches of this driven path (counts
-     set to 0 before, read after) join rows 1-2 of the JSON line; 0 host
-     syncs in a cluster_spatial call; p50 (CUDA events), kernels, device
-     time and peak memory of cluster_spatial (4, 8 shards) beside
-     stixel.cluster and of the spatial step beside device_frame_step; the
-     scaling bench's main() on this one rank;
+     DEFAULT_CONFIG full width over the 8 frames, every public entry point
+     on its graph (runtime/compiled.py's registry: captured at its first
+     call, with its collectives inside, on meshes built anew each call):
+     their densest x-band at 4 and 8 bands printed; cluster_spatial at 8
+     and 4 shards on each frame's obstacle mask == its eager body
+     (_cluster_bands) and == stixel.cluster bit for bit, overflow 0;
+     gpf_spatial and device_frame_step_spatial at 8 shards with
+     block_points 131072 (the step distributes every point) == their
+     eager bodies bit for bit, seg within max(2, n // 1000) labels of
+     device_frame_step, clustering == stixel.cluster of its own obstacle
+     mask, overflow and hull_overflow 0, n_small + n_large ==
+     num_clusters; cluster_spatial_2d on a 2 x 4 mesh (frames 0-1) ==
+     stixel.cluster; sharded_batch_step at B = 8 ==
+     device_frame_step_batched leaf for leaf; sharded_pipeline_2d on a
+     2 x 4 mesh (frames 0-1) == gpf_segment + stixel.cluster, each also
+     == its eager body; every graph that clusters holds
+     {tier_min_d2_kernel: 2, union_find_kernel: 1} kernel nodes
+     (gpf_spatial's none), the wrappers' counts (set to 0 before the
+     drive, read after) hold only the warm-up steps' and the captures'
+     launches, and the graphs' nodes x replays are the launches that join
+     rows 1-2 of the JSON line; each graph's NCCL kernel nodes, node
+     kinds, pool and capture seconds printed; frame 0's 8-band kernel
+     calls (from the eager body) against the twins bit for bit; 0 host
+     syncs in a cluster_spatial eager body and replay; graph against
+     graph p50 (CUDA events) of cluster_spatial (4, 8 shards) against the
+     clustering stage's graph (stixel.cluster) and of the spatial step
+     against the main path's B = 1 graph, each route's eager p50, eager
+     kernels, device time and peak memory beside it; the scaling bench's
+     main() on this one rank (on graphs); then every graph is released
+     (live_graphs() 0 before the knife-edge and probe phases);
   11. knife edge: tools/knife_cases.py's KNIFE rows and its crafted pair
      per d² screen (cell gap and rep at k = 1, 2; supernode gap and the
      four rep probes; the exact tests; the cellgraph's; the halo test)
      through stixel ``cluster``, the cellgraph ``cluster`` (cell_capacity
-     128) and ``cluster_spatial`` at 2 bands, on the card and on the CPU:
-     labels CUDA == CPU bit for bit and every verdict the stored one (the
+     128) and ``cluster_spatial`` at 2 bands (on the card its graph,
+     released after), on the card and on the CPU: labels CUDA == CPU bit
+     for bit and every verdict the stored one (the
      JAX package's on the CPU; the one stored exception is its bands' k = 1
      cell rep screen, whose rounding XLA picks by the table's size);
   12. torch.profiler's count of CUDA kernels in one device step at B = 1
@@ -172,7 +189,10 @@ Phases (any failure raises, so the script never exits 0 after one):
      call (the host clock, no synchronise in the loop), and so is each
      library call beside a probe kernel;
   15b. the compiled step's profiles and turns, after the probes, whose
-     profiles need no graph held: torch.profiler on the main path's graph,
+     profiles need no graph held: torch.profiler on one parallel graph's
+     replay (cluster_spatial at 8 shards on one NCCL rank): one
+     cudaGraphLaunch and no kernel launch call, its hand kernels' runs
+     equal to its nodes; then on the main path's graph,
      one cudaGraphLaunch and no kernel launch call a step against the
      eager step's ~2880, and a replay running as many tier_min_d2_kernel
      and union_find_kernel as the graph holds nodes of; then
@@ -1146,7 +1166,8 @@ def check_knife(device) -> None:
     """The crafted knife-edge pairs (tools/knife_cases.py: the KNIFE rows
     and one pair per d² screen) through the port on the card and on the
     CPU: stixel ``cluster``, the cellgraph ``cluster`` and
-    ``cluster_spatial`` at 2 bands. Labels CUDA == CPU bit for bit, and
+    ``cluster_spatial`` at 2 bands (on the card its graph, released
+    after). Labels CUDA == CPU bit for bit, and
     every verdict the stored one (the JAX package's on the CPU, but for
     the bands' k = 1 cell rep screen, whose rounding XLA picks by shape)."""
     import torch
@@ -1192,9 +1213,11 @@ def check_knife(device) -> None:
                 if kc.linked(lab, case) != kc.PORT_LINKED[screen][col]:
                     raise AssertionError(f"knife {screen} on {path}: "
                                          f"{kc.linked(lab, case)}")
+    release_all_graphs()      # the bands' graph; the probes need none
     log(f"knife edge: KNIFE rows and {len(cases)} screens' pairs, CUDA == "
         f"CPU bit for bit on stixel, cellgraph (cell_capacity "
-        f"{CELL_CAPACITY}) and 2 bands; verdicts as stored")
+        f"{CELL_CAPACITY}) and 2 bands (on the card its graph); verdicts as "
+        f"stored")
 
 
 def frame0_debug(device):
@@ -1669,6 +1692,7 @@ def check_host_stage(tmp: Path, stream, route, native_s, smi) -> None:
     from lidar_processing_tpu_torch.io.export import read_ply_xyzrgb
     from lidar_processing_tpu_torch.oracle.diff import polygon_chamfer
     from lidar_processing_tpu_torch.runtime import pipeline as pipe
+    from lidar_processing_tpu_torch.runtime.stream import ReplayStream
     from lidar_processing_tpu_torch.tools.golden_run import DEFAULT_OUT
     cfg = stream.config
     log(f"host stage: native module built in {native_s:.2f} s; the main "
@@ -1714,13 +1738,32 @@ def check_host_stage(tmp: Path, stream, route, native_s, smi) -> None:
         f"native host p50 {nat_host:.2f} ms, end to end {nat_e2e:.2f} ms; "
         f"scipy host p50 {ref_host:.2f} ms, end to end {ref_e2e:.2f} ms")
 
+    # the stage-timed replay on its two stage graphs, the eager stages
+    # beside it
     _, _, timed = replay(stream, 2, stage_timing=True)
-    for m in timed:
-        if None in (m.t_seg_ms, m.t_cluster_ms, m.t_hull_ms):
+    stages = stream.stage_graphs
+    if len(stages) != 2:
+        raise AssertionError(f"the stage-timed replay ran {len(stages)} "
+                             f"stage graphs, not 2")
+    for what, step, n in (("segmentation", stages[0], 0),
+                          ("clustering", stages[1], 1)):
+        check_kernel_nodes(step, {"tier_min_d2": 2 * n, "union_find": n,
+                                  "min_d2": 0}, f"the {what} stage's graph")
+    eager = ReplayStream(cfg, data_dir=str(tmp), device=stream.device,
+                         eager=True)
+    _, _, eager_timed = replay(eager, 2, stage_timing=True)
+    del eager
+    for m, e in zip(timed, eager_timed):
+        if None in (m.t_seg_ms, m.t_cluster_ms, m.t_hull_ms, e.t_seg_ms):
             raise AssertionError("stage-timed replay left a stage untimed")
-        log(f"stage-timed frame {m.frame_id}: seg {m.t_seg_ms:.2f} ms, "
-            f"cluster {m.t_cluster_ms:.2f} ms, hull {m.t_hull_ms:.2f} ms "
-            f"(dispatch {m.t_dispatch_ms:.2f} ms)")
+        log(f"stage-timed frame {m.frame_id} ({smi}): on the stage graphs "
+            f"seg {m.t_seg_ms:.2f} ms, cluster {m.t_cluster_ms:.2f} ms, "
+            f"hull {m.t_hull_ms:.2f} ms (dispatch {m.t_dispatch_ms:.2f} ms); "
+            f"eager seg {e.t_seg_ms:.2f} ms, cluster {e.t_cluster_ms:.2f} "
+            f"ms, hull {e.t_hull_ms:.2f} ms (dispatch "
+            f"{e.t_dispatch_ms:.2f} ms)")
+    log("stage graphs: " + "; ".join(graph_line(k, g) for k, g in zip(
+        ("segment_stage", "cluster_stage"), stages)))
 
     # paced at the sensor's period, as `run --realtime` replays
     _, _, paced = replay(stream, N_FRAMES, realtime=True)
@@ -2351,89 +2394,157 @@ def spatial_config(cfg):
         cfg.spatial, block_points=SPATIAL_BLOCK_POINTS))
 
 
+def parallel_graphs() -> dict:
+    """The registered graphs of the parallel path, {"<entry point>
+    <shards of its mesh>": CompiledStep}."""
+    from lidar_processing_tpu_torch.parallel.mesh import program_name
+    from lidar_processing_tpu_torch.runtime import compiled
+    return {program_name(key): step
+            for key, step in compiled.programs().items()}
+
+
+def graph_line(name: str, step) -> str:
+    """A graph's kernel nodes, NCCL nodes, node kinds, pool and capture."""
+    kinds = ", ".join(f"{k} {n}" for k, n in sorted(step.node_kinds().items()))
+    return (f"{name}: tier_min_d2_kernel {step.kernel_nodes(KERNEL_OF['tier_min_d2'])}"
+            f", union_find_kernel {step.kernel_nodes(KERNEL_OF['union_find'])}"
+            f", NCCL kernel nodes {step.nccl_nodes()} (nodes: {kinds}), "
+            f"{step.replays} replays, pool {step.pool_bytes / 2**20:.0f} "
+            f"MiB, capture {step.capture_s:.3f} s")
+
+
+# the parallel path's graphs as drive_spatial builds them: {name: replays}
+SPATIAL_GRAPHS = {"cluster_spatial 8": N_FRAMES, "cluster_spatial 4": N_FRAMES,
+                  "gpf_spatial 8": N_FRAMES,
+                  "device_frame_step_spatial 8": N_FRAMES,
+                  "cluster_spatial_2d 2x4": 1, "sharded_batch_step 8": 1,
+                  "sharded_pipeline_2d 2x4": 1}
+
+
 def drive_spatial(stream, obst):
-    """The parallel path, driven as a user calls it on one NCCL rank, with
-    the kernel counts set to 0 just before and read just after:
+    """The parallel path, driven as a user calls it on one NCCL rank, each
+    call on a mesh built anew (equal meshes share a graph), with the
+    kernel counts set to 0 just before and read just after:
     cluster_spatial at 8 and 4 shards on each frame's obstacle mask,
-    device_frame_step_spatial at 8 shards on each frame,
-    sharded_batch_step at B = 8 and sharded_pipeline_2d on a 2 x 4 mesh
-    (frames 0-1). Each cluster_spatial call must launch tier_min_d2 twice
-    and union_find once; frame 0's 8-shard calls are recorded. Returns
-    (results, launches, recorded kernel calls)."""
+    gpf_spatial and device_frame_step_spatial at 8 shards on each frame,
+    cluster_spatial_2d and sharded_pipeline_2d on a 2 x 4 mesh (frames
+    0-1), sharded_batch_step at B = 8. Every entry point replays its
+    registered graph; each graph that clusters holds {tier_min_d2: 2,
+    union_find: 1} kernel nodes, gpf_spatial's none; the wrappers count
+    only the warm-up steps' and the captures' launches, and the path's
+    launches are each graph's nodes x its replays. Returns (results,
+    launches)."""
     import torch
     from lidar_processing_tpu_torch.kernels.tier_min_d2 import tier_min_d2
     from lidar_processing_tpu_torch.kernels.union_find import cc_labels
-    from lidar_processing_tpu_torch.ops import stixel as sx
     from lidar_processing_tpu_torch.parallel.frame_spatial import (
-        device_frame_step_spatial)
+        device_frame_step_spatial, gpf_spatial)
     from lidar_processing_tpu_torch.parallel.sharded import (
         make_mesh, make_mesh_2d, sharded_batch_step, sharded_pipeline_2d)
-    from lidar_processing_tpu_torch.parallel.spatial import cluster_spatial
+    from lidar_processing_tpu_torch.parallel.spatial import (
+        cluster_spatial, cluster_spatial_2d)
+    from lidar_processing_tpu_torch.runtime.compiled import WARMUP_STEPS
     cfg = stream.config
     x, m = stream.xyz[:N_FRAMES], stream.mask[:N_FRAMES]
-    calls = {"tier_min_d2": [], "union_find": []}
-    kernels = (sx.tier_min_d2, sx.cc_labels)
-
-    def recording(name, fn):
-        def record(*args):
-            calls[name].append(args)
-            return fn(*args)
-        return record
-
+    scfg = spatial_config(cfg)
+    r = math.sqrt(cfg.clustering.distance_squared)
+    cl = (cfg.clustering, cfg.pipeline, cfg.spatial)
     res = {"spatial": {}}
     tier_min_d2.launches = cc_labels.launches = 0
     for s in SPATIAL_SHARDS:
-        mesh = make_mesh(s, "space")
         for f in range(N_FRAMES):
-            before = (tier_min_d2.launches, cc_labels.launches)
-            if (s, f) == (SPATIAL_SHARDS[0], 0):
-                sx.tier_min_d2 = recording("tier_min_d2", kernels[0])
-                sx.cc_labels = recording("union_find", kernels[1])
-            try:
-                res["spatial"][s, f] = cluster_spatial(
-                    mesh, x[f], obst[f], cfg.clustering, cfg.pipeline,
-                    cfg.spatial)
-            finally:
-                sx.tier_min_d2, sx.cc_labels = kernels
-            got = (tier_min_d2.launches - before[0],
-                   cc_labels.launches - before[1])
-            if got != (2, 1):
-                raise AssertionError(f"cluster_spatial {s} shards frame {f}:"
-                                     f" launches (tier_min_d2, union_find) "
-                                     f"{got}, not (2, 1)")
-    mesh8 = make_mesh(8, "space")
-    scfg = spatial_config(cfg)
-    res["step"] = [device_frame_step_spatial(mesh8, x[f], m[f], scfg)
+            res["spatial"][s, f] = cluster_spatial(make_mesh(s, "space"),
+                                                   x[f], obst[f], *cl)
+    res["gpf"] = [gpf_spatial(make_mesh(8, "space"), x[f], m[f],
+                              scfg.segmentation, scfg.spatial, r)
+                  for f in range(N_FRAMES)]
+    res["step"] = [device_frame_step_spatial(make_mesh(8, "space"), x[f],
+                                             m[f], scfg)
                    for f in range(N_FRAMES)]
+    res["cl2d"] = cluster_spatial_2d(make_mesh_2d(2, 4), x[:2], obst[:2], *cl)
     res["batch"] = sharded_batch_step(make_mesh(N_FRAMES, "data"), x, m, cfg)
     res["2d"] = sharded_pipeline_2d(make_mesh_2d(2, 4), x[:2], m[:2], cfg)
     torch.cuda.synchronize()
-    launches = {"tier_min_d2": tier_min_d2.launches,
-                "union_find": cc_labels.launches}
-    return res, launches, calls
+    wrapped = {"tier_min_d2": tier_min_d2.launches,
+               "union_find": cc_labels.launches}
+    graphs = parallel_graphs()
+    if {k: g.replays for k, g in graphs.items()} != SPATIAL_GRAPHS:
+        raise AssertionError(f"parallel graphs and replays "
+                             f"{ {k: g.replays for k, g in graphs.items()} }"
+                             f", not {SPATIAL_GRAPHS}")
+    for name, g in graphs.items():
+        clusters = not name.startswith("gpf_spatial")
+        check_kernel_nodes(g, {"tier_min_d2": 2 * clusters,
+                               "union_find": int(clusters), "min_d2": 0},
+                           f"the {name} graph")
+    launches = {k: sum(g.kernel_nodes(KERNEL_OF[k]) * g.replays
+                       for g in graphs.values()) for k in wrapped}
+    # from Python: each graph's warm-up steps and capture, no replay
+    want = {k: (WARMUP_STEPS + 1) * sum(g.kernel_nodes(KERNEL_OF[k])
+                                        for g in graphs.values())
+            for k in wrapped}
+    if wrapped != want:
+        raise AssertionError(f"the wrappers launched {wrapped} from Python "
+                             f"on the parallel path, expected {want}")
+    log(f"parallel path on graphs (one NCCL rank; counts set to 0 before, "
+        f"read after): wrappers' launches from Python {wrapped} (the "
+        f"warm-up steps and captures), graphs' kernel nodes x replays = "
+        f"launches {launches}; each graph:\n  "
+        + "\n  ".join(graph_line(k, g) for k, g in graphs.items()))
+    return res, launches
 
 
-def check_spatial(stream, res, singles, batch8) -> None:
-    """The driven results against the single-device path (module
-    docstring, phase 10)."""
+def same_tree(a, b) -> bool:
+    """Two result trees equal leaf for leaf, bit for bit."""
     import torch
+    la, lb = (torch.utils._pytree.tree_leaves(t) for t in (a, b))
+    return len(la) == len(lb) and all(same_bits(p, q) for p, q in zip(la, lb))
+
+
+def check_spatial(stream, res, obst, singles, batch8) -> None:
+    """The driven results against their eager bodies and the
+    single-device path (module docstring, phase 10)."""
     from lidar_processing_tpu_torch.ops import stixel as sx
     from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
+    from lidar_processing_tpu_torch.parallel import frame_spatial as fs
+    from lidar_processing_tpu_torch.parallel import sharded as sh
+    from lidar_processing_tpu_torch.parallel import spatial as sp
     from lidar_processing_tpu_torch.runtime.pipeline import device_frame_step
-    from lidar_processing_tpu_torch.types import SEG_OBSTACLE, frame_of
+    from lidar_processing_tpu_torch.types import SEG_OBSTACLE, map_leaves
     cfg = stream.config
     x, m = stream.xyz[:N_FRAMES], stream.mask[:N_FRAMES]
+    scfg = spatial_config(cfg)
+    r = math.sqrt(cfg.clustering.distance_squared)
+    cl = (cfg.clustering, cfg.pipeline, cfg.spatial)
+    mesh8, mesh2d = sh.make_mesh(8, "space"), sh.make_mesh_2d(2, 4)
+
+    def first(tree):
+        return map_leaves(lambda t: t[0], tree)
     for (s, f), got in res["spatial"].items():
-        want = singles[f]
-        if not all(same_bits(a, b) for a, b in zip(got, want)):
+        eager = first(sp._cluster_bands(sh.make_mesh(s, "space"), "space",
+                                        x[f][None], obst[f][None], *cl))
+        if not same_tree(got, eager) or not same_tree(got, singles[f]):
             raise AssertionError(f"cluster_spatial {s} shards frame {f}: "
-                                 f"differs from stixel.cluster")
+                                 f"the graph differs from its eager body or "
+                                 f"from stixel.cluster")
         if int(got.overflow) != 0:
             raise AssertionError(f"cluster_spatial {s} shards frame {f}: "
                                  f"overflow {int(got.overflow)}")
     seg_diff = []
-    for f, fr in enumerate(res["step"]):
+    for f, (fr, (seg, seg_ovf)) in enumerate(zip(res["step"], res["gpf"])):
         n = int(stream.counts[f])
+        if not same_tree((seg, seg_ovf), fs._gpf_bands(
+                mesh8, x[f], m[f], scfg.segmentation, scfg.spatial, r,
+                "space")) or int(seg_ovf) != 0:
+            raise AssertionError(f"gpf_spatial frame {f}: the graph differs "
+                                 f"from its eager body or overflows")
+        if not same_tree(fr, fs._step_spatial(mesh8, x[f], m[f], scfg,
+                                              "space")):
+            raise AssertionError(f"device_frame_step_spatial frame {f}: the "
+                                 f"graph differs from its eager body")
+        if not same_bits(fr.seg.labels, seg.labels):
+            raise AssertionError(f"device_frame_step_spatial frame {f}: seg "
+                                 f"differs from gpf_spatial's")
         one = device_frame_step(x[f], m[f], cfg)
         seg_diff.append(int((fr.seg.labels[:n] != one.seg.labels[:n]).sum()))
         if seg_diff[-1] > max(2, n // 1000):
@@ -2441,7 +2552,7 @@ def check_spatial(stream, res, singles, batch8) -> None:
                                  f"{seg_diff[-1]} of {n} seg labels differ")
         own = m[f] & (fr.seg.labels == SEG_OBSTACLE)
         ref = sx.cluster(x[f], own, cfg.clustering, cfg.pipeline)
-        if not all(same_bits(a, b) for a, b in zip(fr.clustering, ref)):
+        if not same_tree(fr.clustering, ref):
             raise AssertionError(f"device_frame_step_spatial frame {f}: "
                                  f"clustering differs from stixel.cluster "
                                  f"of its own obstacle mask")
@@ -2454,45 +2565,73 @@ def check_spatial(stream, res, singles, batch8) -> None:
                 f"{int(fr.hull_overflow)}, {int(fr.n_small)} + "
                 f"{int(fr.n_large)} slots for "
                 f"{int(fr.clustering.num_clusters)} clusters")
-    if not all(same_bits(a, b) for a, b in zip(
-            torch.utils._pytree.tree_leaves(res["batch"]),
-            torch.utils._pytree.tree_leaves(batch8))):
-        raise AssertionError("sharded_batch_step B=8 differs from "
+    cl2d = sp._spatial_2d_program(mesh2d, ("data", "space"), x[:2], obst[:2],
+                                  cl)
+    if not same_tree(res["cl2d"], cl2d) or not same_tree(
+            res["cl2d"], sx.cluster(x[:2], obst[:2], *cl[:2])):
+        raise AssertionError("cluster_spatial_2d: the graph differs from its "
+                             "eager body or from stixel.cluster")
+    if not same_tree(res["batch"], sh._batch_step(
+            sh.make_mesh(N_FRAMES, "data"), x, m, cfg)) \
+            or not same_tree(res["batch"], batch8):
+        raise AssertionError("sharded_batch_step B=8: the graph differs from "
+                             "its eager body or from "
                              "device_frame_step_batched")
     seg2, cl2 = res["2d"]
-    if not all(same_bits(a, b) for a, b in zip(
-            torch.utils._pytree.tree_leaves(seg2),
-            torch.utils._pytree.tree_leaves(gpf_segment(
-                x[:2], m[:2], cfg.segmentation)))):
+    if not same_tree(res["2d"], sh._pipeline_2d(mesh2d, x[:2], m[:2], cfg)):
+        raise AssertionError("sharded_pipeline_2d: the graph differs from "
+                             "its eager body")
+    if not same_tree(seg2, gpf_segment(x[:2], m[:2], cfg.segmentation)):
         raise AssertionError("sharded_pipeline_2d: segmentation differs "
                              "from gpf_segment")
     ref2 = sx.cluster(x[:2], m[:2] & (seg2.labels == SEG_OBSTACLE),
                       cfg.clustering, cfg.pipeline)
-    if not all(same_bits(a, b) for a, b in zip(cl2, ref2)) \
-            or int(cl2.overflow.sum()) != 0:
+    if not same_tree(cl2, ref2) or int(cl2.overflow.sum()) != 0:
         raise AssertionError("sharded_pipeline_2d: clustering differs from "
                              "stixel.cluster or overflows")
-    log(f"parallel path (one NCCL rank): cluster_spatial at "
+    log(f"parallel path (one NCCL rank), every graph's result == its eager "
+        f"body's bit for bit: cluster_spatial at "
         f"{'/'.join(map(str, SPATIAL_SHARDS))} shards == stixel.cluster bit "
-        f"for bit on frames 0-{N_FRAMES - 1}, overflow 0; "
+        f"for bit on frames 0-{N_FRAMES - 1}, overflow 0; gpf_spatial and "
         f"device_frame_step_spatial (8 shards, block_points "
         f"{SPATIAL_BLOCK_POINTS}): seg labels differing from "
         f"device_frame_step {seg_diff}, clustering == stixel.cluster of its "
         f"own obstacle mask, overflow 0, hull_overflow 0, n_small + n_large "
         f"== num_clusters "
         f"{[int(fr.clustering.num_clusters) for fr in res['step']]}; "
+        f"cluster_spatial_2d (2 x 4, frames 0-1) == stixel.cluster; "
         f"sharded_batch_step B={N_FRAMES} == device_frame_step_batched leaf "
         f"for leaf; sharded_pipeline_2d (2 x 4, frames 0-1) == gpf_segment "
         f"+ stixel.cluster")
 
 
-def check_spatial_kernels(calls) -> None:
+def check_spatial_kernels(stream, obst) -> None:
     """Frame 0's 8-shard cluster_spatial kernel calls (one launch each
-    for the 8 bands) against the twins on the card, bit for bit."""
+    for the 8 bands, recorded from its eager body) against the twins on
+    the card, bit for bit."""
     from lidar_processing_tpu_torch.kernels.tier_min_d2 import (
         tier_min_d2, tier_min_d2_ref)
     from lidar_processing_tpu_torch.kernels.union_find import (cc_labels,
                                                                cc_labels_ref)
+    from lidar_processing_tpu_torch.ops import stixel as sx
+    from lidar_processing_tpu_torch.parallel.sharded import make_mesh
+    from lidar_processing_tpu_torch.parallel.spatial import _cluster_bands
+    cfg = stream.config
+    calls = {"tier_min_d2": [], "union_find": []}
+    kernels = (sx.tier_min_d2, sx.cc_labels)
+
+    def recording(name, fn):
+        def record(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return record
+    sx.tier_min_d2 = recording("tier_min_d2", kernels[0])
+    sx.cc_labels = recording("union_find", kernels[1])
+    try:
+        _cluster_bands(make_mesh(8, "space"), "space", stream.xyz[:1],
+                       obst[:1], cfg.clustering, cfg.pipeline, cfg.spatial)
+    finally:
+        sx.tier_min_d2, sx.cc_labels = kernels
     if (len(calls["tier_min_d2"]), len(calls["union_find"])) != (2, 1):
         raise AssertionError(f"frame 0's cluster_spatial: {calls} calls")
     shapes = []
@@ -2508,85 +2647,137 @@ def check_spatial_kernels(calls) -> None:
 
 
 def spatial_host_syncs(stream, obst) -> int:
-    """Host syncs inside one cluster_spatial call at 8 shards (torch's
-    sync debug mode, as count_host_syncs reads the step)."""
+    """Host syncs inside one cluster_spatial call at 8 shards, its eager
+    body and its replay (torch's sync debug mode, as count_host_syncs
+    reads the step)."""
     import warnings
     import torch
     from lidar_processing_tpu_torch.parallel.sharded import make_mesh
-    from lidar_processing_tpu_torch.parallel.spatial import cluster_spatial
+    from lidar_processing_tpu_torch.parallel.spatial import (_cluster_bands,
+                                                             cluster_spatial)
     cfg, mesh = stream.config, make_mesh(8, "space")
-    call = lambda: cluster_spatial(  # noqa: E731
-        mesh, stream.xyz[0], obst[0], cfg.clustering, cfg.pipeline,
-        cfg.spatial)
-    call()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            call()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
-             if "called a synchronizing" in str(w.message)]
-    log(f"host syncs in one cluster_spatial call (8 shards): {len(syncs)}"
-        + "".join(f"\n  at {s}" for s in sorted(set(syncs))))
-    if syncs:
+    cl = (cfg.clustering, cfg.pipeline, cfg.spatial)
+    out = {}
+    for route, call in (
+            ("eager body", lambda: _cluster_bands(
+                mesh, "space", stream.xyz[:1], obst[:1], *cl)),
+            ("replay", lambda: cluster_spatial(mesh, stream.xyz[0], obst[0],
+                                               *cl))):
+        call()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        out[route] = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                      if "called a synchronizing" in str(w.message)]
+    log(f"host syncs in one cluster_spatial call (8 shards): "
+        + ", ".join(f"{k} {len(v)}" for k, v in out.items())
+        + "".join(f"\n  at {s}" for v in out.values() for s in sorted(set(v))))
+    if any(out.values()):
         raise AssertionError("cluster_spatial waits on the card")
-    return len(syncs)
+    return sum(len(v) for v in out.values())
 
 
 def time_spatial(stream, obst, smi) -> dict:
-    """p50 over the 8 frames of CUDA-event times (3 repeats a frame) of
-    cluster_spatial at 4 and 8 shards beside stixel.cluster on the same
-    masks, and of device_frame_step_spatial (8 shards) beside
-    device_frame_step; CUDA kernels of one call of each (torch.profiler)
-    and the peak device memory of one call (its own)."""
+    """Graph against graph, p50 over the 8 frames of CUDA-event times (3
+    repeats a frame): cluster_spatial at 4 and 8 shards against the
+    clustering stage's graph (stixel.cluster) on the same masks, and
+    device_frame_step_spatial (8 shards) against the main path's graph
+    (the B = 1 batched step); each route's eager p50 beside it, with the
+    kernels and device ms of one eager call (torch.profiler: no graph
+    replay is profiled before the probes) and its peak device memory
+    (its own), and each graph's pool."""
     import torch
     from lidar_processing_tpu_torch.ops import stixel as sx
-    from lidar_processing_tpu_torch.parallel.frame_spatial import (
-        device_frame_step_spatial)
+    from lidar_processing_tpu_torch.parallel import frame_spatial as fs
     from lidar_processing_tpu_torch.parallel.sharded import make_mesh
-    from lidar_processing_tpu_torch.parallel.spatial import cluster_spatial
-    from lidar_processing_tpu_torch.runtime.pipeline import device_frame_step
+    from lidar_processing_tpu_torch.parallel import spatial as sp
+    from lidar_processing_tpu_torch.runtime.compiled import CompiledStep
+    from lidar_processing_tpu_torch.runtime.pipeline import (
+        device_frame_step, device_frame_step_batched)
+    from lidar_processing_tpu_torch.runtime.stream import cluster_stage
     from lidar_processing_tpu_torch.tools.step_bench import step_kernels
     cfg, dev = stream.config, stream.device
     x, m = stream.xyz, stream.mask
     scfg = spatial_config(cfg)
+    cl = (cfg.clustering, cfg.pipeline, cfg.spatial)
     meshes = {s: make_mesh(s, "space") for s in SPATIAL_SHARDS}
-    runs = {f"cluster_spatial {s}": (lambda f, s=s: cluster_spatial(
-        meshes[s], x[f], obst[f], cfg.clustering, cfg.pipeline,
-        cfg.spatial)) for s in SPATIAL_SHARDS[::-1]}
-    runs["stixel.cluster"] = lambda f: sx.cluster(
-        x[f], obst[f], cfg.clustering, cfg.pipeline)
-    runs["device_frame_step_spatial 8"] = lambda f: (
-        device_frame_step_spatial(meshes[8], x[f], m[f], scfg))
-    runs["device_frame_step"] = lambda f: device_frame_step(x[f], m[f], cfg)
+    stage = CompiledStep(cluster_stage, cfg, 1, dev)
+    main = CompiledStep(device_frame_step_batched, cfg, 1, dev)
+    runs = {}
+    for s in SPATIAL_SHARDS[::-1]:
+        runs[f"cluster_spatial {s}"] = (
+            lambda f, s=s: sp.cluster_spatial(meshes[s], x[f], obst[f], *cl),
+            lambda f, s=s: sp._cluster_bands(meshes[s], "space",
+                                             x[f:f + 1], obst[f:f + 1], *cl),
+            None)
+    runs["stixel.cluster"] = (lambda f: stage(x[f:f + 1], obst[f:f + 1]),
+                              lambda f: sx.cluster(x[f], obst[f], *cl[:2]),
+                              stage)
+    runs["device_frame_step_spatial 8"] = (
+        lambda f: fs.device_frame_step_spatial(meshes[8], x[f], m[f], scfg),
+        lambda f: fs._step_spatial(meshes[8], x[f], m[f], scfg, "space"),
+        None)
+    runs["device_frame_step"] = (lambda f: main(x[f:f + 1], m[f:f + 1]),
+                                 lambda f: device_frame_step(x[f], m[f], cfg),
+                                 main)
     out = {}
-    for name, run in runs.items():
-        p50 = statistics.median(cuda_ms(lambda f=f: run(f), reps=3)
-                                for f in range(N_FRAMES))
-        prof = step_kernels(lambda: run(0))
+    for name, (graph, eager, step) in runs.items():
+        p50 = {route: statistics.median(cuda_ms(lambda f=f: fn(f), reps=3)
+                                        for f in range(N_FRAMES))
+               for route, fn in (("graph", graph), ("eager", eager))}
+        prof = step_kernels(lambda: eager(0))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         before = torch.cuda.memory_allocated(dev)
-        run(0)
+        eager(0)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev) - before
-        out[name] = {"p50_ms": p50, **prof, "peak_mib": peak / 2 ** 20}
+        if step is None:
+            step = parallel_graphs()[name]
+        out[name] = {"graph_p50_ms": p50["graph"], "eager_p50_ms": p50["eager"],
+                     **prof, "peak_mib": peak / 2 ** 20,
+                     "pool_mib": step.pool_bytes / 2 ** 20}
+    stage.release()
+    main.release()
+    ratio = {k: out[k]["graph_p50_ms"] / out[ref]["graph_p50_ms"]
+             for k, ref in (("cluster_spatial 8", "stixel.cluster"),
+                            ("cluster_spatial 4", "stixel.cluster"),
+                            ("device_frame_step_spatial 8",
+                             "device_frame_step"))}
     log(f"parallel path timings ({smi}; one NCCL rank; CUDA events, p50 "
-        f"over {N_FRAMES} frames x 3; kernels and device ms of one call "
-        f"from torch.profiler; peak memory of one call, its own): "
-        + "; ".join(f"{k} {v['p50_ms']:.3f} ms, {v['kernels']} kernels, "
-                    f"{v['busy_ms']:.3f} ms device, {v['peak_mib']:.0f} MiB"
-                    for k, v in out.items()))
+        f"over {N_FRAMES} frames x 3; kernels and device ms of one eager "
+        f"call from torch.profiler, its peak memory its own; the graph's "
+        f"pool): "
+        + "; ".join(f"{k} graph {v['graph_p50_ms']:.3f} ms, eager "
+                    f"{v['eager_p50_ms']:.3f} ms, {v['kernels']} kernels, "
+                    f"{v['busy_ms']:.3f} ms device, eager peak "
+                    f"{v['peak_mib']:.0f} MiB, pool {v['pool_mib']:.0f} MiB"
+                    for k, v in out.items())
+        + "; graph against graph: " + ", ".join(
+            f"{k} / its single-device graph {v:.2f}x"
+            for k, v in ratio.items()))
     return out
+
+
+def release_all_graphs() -> None:
+    """Free every registered graph; no graph is held in the process
+    after (the probes' profiles need none)."""
+    from lidar_processing_tpu_torch.runtime import compiled
+    compiled.release_graphs()
+    torch_empty_cache()
+    if compiled.live_graphs():
+        raise AssertionError(f"{compiled.live_graphs()} CUDA graphs still "
+                             f"held")
 
 
 def run_spatial_phase(stream, smi) -> dict:
     """The sharded and spatial phase (module docstring, phase 10), on one
     NCCL rank; returns the kernel launches of its driven path."""
-    import torch
     import torch.distributed as dist
     from lidar_processing_tpu_torch.ops import stixel as sx
     from lidar_processing_tpu_torch.runtime.pipeline import (
@@ -2603,19 +2794,65 @@ def run_spatial_phase(stream, smi) -> dict:
             x, m, obst, math.sqrt(cfg.clustering.distance_squared)))
         singles = [sx.cluster(x[f], obst[f], cfg.clustering, cfg.pipeline)
                    for f in range(N_FRAMES)]
-        res, launches, calls = drive_spatial(stream, obst)
-        log(f"parallel path launches (counts set to 0 before, read after): "
-            f"{launches}")
-        check_spatial(stream, res, singles, batch8)
-        check_spatial_kernels(calls)
+        res, launches = drive_spatial(stream, obst)
+        check_spatial(stream, res, obst, singles, batch8)
+        check_spatial_kernels(stream, obst)
         spatial_host_syncs(stream, obst)
         time_spatial(stream, obst, smi)
+        release_all_graphs()
         out = scaling_bench.main([])
         if set(out["data"]) != {1, 2, 4, 8} or "mesh_2d" not in out:
             raise AssertionError(f"scaling_bench: {out}")
     finally:
+        release_all_graphs()
         dist.destroy_process_group()
     return launches
+
+
+def check_parallel_graph_launches(stream) -> None:
+    """torch.profiler on one parallel graph's replay (cluster_spatial at
+    8 shards, frame 0, one NCCL rank): one cudaGraphLaunch and no kernel
+    launch call, and as many tier_min_d2_kernel and union_find_kernel
+    runs as the graph holds nodes of; released after."""
+    import torch.distributed as dist
+    from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
+    from lidar_processing_tpu_torch.parallel.sharded import make_mesh
+    from lidar_processing_tpu_torch.parallel.spatial import cluster_spatial
+    from lidar_processing_tpu_torch.tools.step_bench import step_kernels
+    from lidar_processing_tpu_torch.types import SEG_OBSTACLE
+    cfg = stream.config
+    x, m = stream.xyz[0], stream.mask[0]
+    obst = m & (gpf_segment(x, m, cfg.segmentation).labels == SEG_OBSTACLE)
+    nccl_rank()
+    try:
+        def call():
+            return cluster_spatial(make_mesh(8, "space"), x, obst,
+                                   cfg.clustering, cfg.pipeline, cfg.spatial)
+        call()
+        (step,) = parallel_graphs().values()
+        graph = step_kernels(call)
+        if (graph["graph_launches"], graph["launch_calls"]) != (1, 0):
+            raise AssertionError(f"a cluster_spatial replay: {graph}")
+        _, ran = kernel_counts(call)
+        inside = {k: launches_of(ran, k) for k in ("tier_min_d2_kernel",
+                                                   "union_find_kernel")}
+        nodes = {k: step.kernel_nodes(k) for k in inside}
+        nccl = sum(n for k, n in ran.items() if "nccl" in k.lower())
+        if inside != nodes or nodes != {"tier_min_d2_kernel": 2,
+                                        "union_find_kernel": 1}:
+            raise AssertionError(f"a cluster_spatial replay ran {inside}; "
+                                 f"its graph holds {nodes}")
+        log(f"cluster_spatial 8's graph (torch.profiler, frame 0, one NCCL "
+            f"rank): {graph['graph_launches']} cudaGraphLaunch and "
+            f"{graph['launch_calls']} kernel launch calls a call, "
+            f"{graph['kernels']} CUDA kernels and {graph['copies']} copies "
+            f"and fills inside, {graph['busy_ms']:.3f} ms of device time, "
+            f"{inside} of them the hand kernels (== the graph's nodes), "
+            f"{nccl} NCCL kernels (the graph's NCCL kernel nodes: "
+            f"{step.nccl_nodes()})")
+    finally:
+        release_all_graphs()
+        dist.destroy_process_group()
 
 
 def main() -> None:
@@ -2670,6 +2907,7 @@ def main() -> None:
         parent_turns(frame_pairs, smi)
         probe_launches = run_probe_path(device, frame_edges)
     with phase("compiled step: profiles and turns"):
+        check_parallel_graph_launches(stream)
         run_graph_turns(stream, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

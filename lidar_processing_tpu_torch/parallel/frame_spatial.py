@@ -38,10 +38,10 @@ from ..ops.hull import label_runs
 from ..ops.scan_utils import set_drop, sort_by
 from ..ops.segmentation import _fit_partition, _partition_sort, _seed_runs
 from ..runtime.pipeline import NUM_SLOTS, FrameResult, _hull_stage
-from ..types import (Plane, SegmentationResult, SEG_OBSTACLE, SEG_UNKNOWN,
-                     frame_of, map_leaves)
+from ..types import (ClusteringResult, Plane, SegmentationResult,
+                     SEG_OBSTACLE, SEG_UNKNOWN, frame_of, map_leaves)
 from .mesh import Mesh
-from .spatial import _distribute, cluster_spatial
+from .spatial import _cluster_bands, _distribute
 
 _I32 = torch.int32
 
@@ -85,15 +85,11 @@ def _fit_bands(mesh: Mesh, axis: str, bx, bv, bseg, bseed,
     return labels, normals[0], ds[0], valid[0]
 
 
-def gpf_spatial(mesh: Mesh, xyz: torch.Tensor, mask: torch.Tensor,
-                cfg: SegmentationConfig, scfg: SpatialConfig,
-                clustering_radius: float, axis: str = "space"):
-    """GPF ground segmentation of one padded cloud sharded over `axis`.
-
-    Returns (SegmentationResult, overflow): overflow counts the points the
-    x-band distribution dropped (the block_points cap); they come back
-    SEG_UNKNOWN, and by the package's contract that is never silent.
-    """
+def _gpf_bands(mesh: Mesh, xyz: torch.Tensor, mask: torch.Tensor,
+               cfg: SegmentationConfig, scfg: SpatialConfig,
+               clustering_radius: float, axis: str):
+    """gpf_spatial's eager body for one frame on the mesh's device:
+    (SegmentationResult, overflow)."""
     dev = mesh.device
     xyz, mask = xyz.to(dev), mask.to(dev)
     n = xyz.shape[0]
@@ -116,6 +112,44 @@ def gpf_spatial(mesh: Mesh, xyz: torch.Tensor, mask: torch.Tensor,
     return SegmentationResult(labels, Plane(normals, ds), pvalid), ovf_d[0]
 
 
+def _step_spatial(mesh: Mesh, xyz: torch.Tensor, mask: torch.Tensor,
+                  config: EngineConfig, axis: str) -> FrameResult:
+    """device_frame_step_spatial's eager body for one frame: the three
+    programs of the JAX step (``gpf_spatial``'s, ``cluster_spatial``'s and
+    the hull stage's) in one."""
+    dev = mesh.device
+    xyz, mask = xyz.to(dev), mask.to(dev)
+    r = math.sqrt(config.clustering.distance_squared)
+    seg, seg_ovf = _gpf_bands(mesh, xyz, mask, config.segmentation,
+                              config.spatial, r, axis)
+    obstacle = mask & (seg.labels == SEG_OBSTACLE)
+    labels, num, overflow = _cluster_bands(
+        mesh, axis, xyz[None], obstacle[None], config.clustering,
+        config.pipeline, config.spatial)
+    cl = ClusteringResult(labels[0], num[0], overflow[0] + seg_ovf)
+    runs = label_runs(xyz, cl.labels, NUM_SLOTS)
+    one = map_leaves(lambda t: t[None], (seg, cl, runs))
+    return frame_of(_hull_stage(*one, config), 0)
+
+
+def gpf_spatial(mesh: Mesh, xyz: torch.Tensor, mask: torch.Tensor,
+                cfg: SegmentationConfig, scfg: SpatialConfig,
+                clustering_radius: float, axis: str = "space"):
+    """GPF ground segmentation of one padded cloud sharded over `axis`.
+
+    Returns (SegmentationResult, overflow): overflow counts the points the
+    x-band distribution dropped (the block_points cap); they come back
+    SEG_UNKNOWN, and by the package's contract that is never silent. On
+    the card a captured graph of its own (``Mesh.run``), the JAX
+    package's jitted ``run``.
+    """
+    def program(xyzs, masks, cfgs):
+        return _gpf_bands(mesh, xyzs[0], masks[0], *cfgs, axis)
+    return mesh.run(("gpf_spatial", axis), program,
+                    (cfg, scfg, float(clustering_radius)), xyz[None],
+                    mask[None])
+
+
 def device_frame_step_spatial(mesh: Mesh, xyz: torch.Tensor,
                               mask: torch.Tensor, config: EngineConfig,
                               axis: str = "space") -> FrameResult:
@@ -127,17 +161,10 @@ def device_frame_step_spatial(mesh: Mesh, xyz: torch.Tensor,
     of the same obstacle mask, and the hull stage unsharded on the
     reassembled labels (``label_runs`` and the pipeline's hull stage,
     called directly). Overflow counts the segmentation's dropped points
-    too.
+    too. On the card the whole step is one captured graph
+    (``Mesh.run``), where the JAX package runs three programs.
     """
-    dev = mesh.device
-    xyz, mask = xyz.to(dev), mask.to(dev)
-    r = math.sqrt(config.clustering.distance_squared)
-    seg, seg_ovf = gpf_spatial(mesh, xyz, mask, config.segmentation,
-                               config.spatial, r, axis)
-    obstacle = mask & (seg.labels == SEG_OBSTACLE)
-    cl = cluster_spatial(mesh, xyz, obstacle, config.clustering,
-                         config.pipeline, config.spatial, axis)
-    cl = cl._replace(overflow=cl.overflow + seg_ovf)
-    runs = label_runs(xyz, cl.labels, NUM_SLOTS)
-    one = map_leaves(lambda t: t[None], (seg, cl, runs))
-    return frame_of(_hull_stage(*one, config), 0)
+    def program(xyzs, masks, cfg):
+        return _step_spatial(mesh, xyzs[0], masks[0], cfg, axis)
+    return mesh.run(("device_frame_step_spatial", axis), program, config,
+                    xyz[None], mask[None])

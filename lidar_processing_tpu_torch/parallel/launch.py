@@ -13,7 +13,8 @@ within `timeout_s` fails it too, and every process still running is
 killed, so a hung collective never hangs the caller.
 
 ``run_entry_points`` is a job: it builds a mesh per call and runs a
-parallel entry point on it, numpy in and numpy out (the tests' layouts).
+parallel entry point on it, numpy in and numpy out (the tests' layouts);
+``run_on_graphs`` also reports the graphs those calls captured.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..runtime import compiled
+
 
 def _rank_entry(rank: int, world_size: int, init_method: str, backend: str,
                 timeout_s: float, job, args, results) -> None:
@@ -43,6 +46,8 @@ def _rank_entry(rank: int, world_size: int, init_method: str, backend: str,
         try:
             results.put((rank, True, job(*args)))
         finally:
+            # graphs that captured this group's collectives go first
+            compiled.release_graphs()
             dist.destroy_process_group()
     except Exception:  # reported to the parent, which raises it
         results.put((rank, False, traceback.format_exc()))
@@ -94,12 +99,16 @@ def _numpy(tree):
     return tree
 
 
-def run_entry_points(device: str, calls: Sequence[tuple]) -> list:
+def run_entry_points(device: str, calls: Sequence[tuple],
+                     repeats: int = 1) -> list:
     """A job: for each (entry point, mesh shape, args) of `calls`, a mesh
     over this process group (``make_mesh(n, axis)`` for a shape {axis:
     n}, ``make_mesh_2d`` for {"data": ., "space": .}) on `device` and
-    ``entry_point(mesh, *args)`` on numpy args, as numpy. The entry
-    points are module-level functions of the port (they pickle by
+    ``entry_point(mesh, *args)`` on numpy args, `repeats` times on that
+    mesh (on the card the first call captures the program's graph, the
+    others replay it), each result as numpy, read after the call's last
+    repeat; the results in call order, a call's repeats together. The
+    entry points are module-level functions of the port (they pickle by
     reference)."""
     from .mesh import make_mesh, make_mesh_2d
     out = []
@@ -111,5 +120,25 @@ def run_entry_points(device: str, calls: Sequence[tuple]) -> list:
             mesh = make_mesh(n, axis, device)
         args = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
                 for a in args]
-        out.append(_numpy(entry(mesh, *args)))
+        results = [entry(mesh, *args) for _ in range(repeats)]
+        out.extend(_numpy(r) for r in results)
     return out
+
+
+def run_on_graphs(device: str, calls: Sequence[tuple],
+                  repeats: int = 2) -> tuple:
+    """A job: ``run_entry_points(device, calls, repeats)`` and the graphs
+    those calls registered (runtime/compiled.py), which it then releases:
+    a list of {"name": "<entry point> <shards>", "frames": (B, N),
+    "tier_min_d2": nodes, "union_find": nodes, "nccl": NCCL kernel nodes,
+    "replays": replays}."""
+    from .mesh import program_name
+    out = run_entry_points(device, calls, repeats)
+    graphs = [{
+        "name": program_name(key), "frames": key[2:4],
+        "tier_min_d2": step.kernel_nodes("tier_min_d2_kernel"),
+        "union_find": step.kernel_nodes("union_find_kernel"),
+        "nccl": step.nccl_nodes(), "replays": step.replays}
+        for key, step in compiled.programs().items()]
+    compiled.release_graphs()
+    return out, graphs

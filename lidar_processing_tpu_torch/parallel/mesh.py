@@ -34,6 +34,16 @@ process group, and later meshes of that layout reuse them. Sums over
 shards (``sum_shards``) gather every shard's partial and add them in
 shard order 0..S-1 over a fixed tree: the same bits in every layout,
 where ``all_reduce``'s order would belong to NCCL or gloo.
+
+On the card every public entry point of the parallel path runs its
+program through ``Mesh.run``: captured once as a CUDA graph per (program,
+``Mesh.layout``, configs, input shape) and replayed (runtime/compiled.py),
+its collectives inside the graph. The communicator exists before the
+capture (the eager warm-up steps run the first collective), ``new_group``
+stays at mesh construction, outside any capture, and the collectives
+take only the capture-safe forms used here: ``all_gather`` into equal
+parts, ``batch_isend_irecv`` waited on the current stream. On the CPU
+(gloo) the programs run eagerly.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.segmentation import _tree_sum
+from ..runtime import compiled
 
 
 def _initialised() -> bool:
@@ -104,6 +115,11 @@ class Mesh:
             self._stride[axis] = stride
             stride *= ranks[axis]
         self.groups = self._groups() if _initialised() else {}
+        # what fixes a program captured on this mesh: equal layouts share
+        # a graph (the JAX package's lru_cache over a hashable Mesh)
+        self.layout = (tuple(self.shape.items()), tuple(self.ranks.items()),
+                       rank, self.device,
+                       dist.group.WORLD if _initialised() else None)
 
     def _groups(self) -> Dict[str, object]:
         """Each axis' process group: the ranks that differ from this one
@@ -135,6 +151,17 @@ class Mesh:
                 if self.rank in members:
                     groups[axis] = group
         return groups
+
+    def run(self, program: tuple, fn, config, xyzs: torch.Tensor,
+            masks: torch.Tensor):
+        """``fn(xyzs, masks, config)``, fn a program on this mesh named by
+        `program`: on the card its registered graph replayed
+        (``compiled.replay_copy``: a copy of every output), on the CPU
+        fn itself."""
+        if compiled.uses_graph(self.device):
+            return compiled.replay_copy((program, self.layout), fn, config,
+                                        xyzs, masks, self.device)
+        return fn(xyzs, masks, config)
 
     def local_shards(self, axis: str) -> int:
         """Shards of `axis` this rank holds."""
@@ -188,6 +215,14 @@ class Mesh:
         over a fixed tree, so the bits do not depend on the layout."""
         every = self.all_gather(x, axis)                    # (S, ...)
         return _tree_sum(every.movedim(0, -1))
+
+
+def program_name(key: tuple) -> str:
+    """"<entry point> <shards of its mesh>" (e.g. "cluster_spatial 8",
+    "sharded_pipeline_2d 2x4") of a registry key of ``compiled.programs()``
+    that ``Mesh.run`` made."""
+    (program, layout), *_ = key
+    return f"{program[0]} {'x'.join(str(n) for _, n in layout[0])}"
 
 
 def make_mesh(n_shards: Optional[int] = None, axis_name: str = "data",

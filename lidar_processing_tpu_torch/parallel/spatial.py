@@ -40,6 +40,7 @@ converge in 16 rounds, raises ``overflow``: never a silent truncation.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -295,6 +296,26 @@ def _cluster_bands(mesh: Mesh, axis: str, xyzs: torch.Tensor,
     return out, num_clusters, overflow
 
 
+def _spatial_program(mesh: Mesh, axis: str, xyzs: torch.Tensor,
+                     valids: torch.Tensor, cfgs: tuple):
+    """cluster_spatial's program: ``_cluster_bands`` of (1, N) frames,
+    configs (ccfg, pcfg, scfg)."""
+    dev = mesh.device
+    return _cluster_bands(mesh, axis, xyzs.to(dev), valids.to(dev), *cfgs)
+
+
+def _spatial_2d_program(mesh: Mesh, axes: tuple, xyzs: torch.Tensor,
+                        valids: torch.Tensor, cfgs: tuple):
+    """cluster_spatial_2d's program: each rank's frames of the data axis
+    (axes[0]) through ``_cluster_bands`` over the space axis (axes[1]),
+    gathered over the data axis."""
+    data_axis, space_axis = axes
+    dev = mesh.device
+    out = _cluster_bands(mesh, space_axis, mesh.local(xyzs.to(dev), data_axis),
+                         mesh.local(valids.to(dev), data_axis), *cfgs)
+    return tuple(mesh.all_gather(t, data_axis) for t in out)
+
+
 def cluster_spatial(mesh: Mesh, xyz: torch.Tensor, valid: torch.Tensor,
                     ccfg: ClusteringConfig, pcfg: PipelineConfig,
                     scfg: SpatialConfig, axis: str = "space"
@@ -304,11 +325,13 @@ def cluster_spatial(mesh: Mesh, xyz: torch.Tensor, valid: torch.Tensor,
     xyz (N, 3) f32, valid (N,) bool; moved to the mesh's device. Returns a
     ClusteringResult identical to ``ops.stixel.cluster(xyz, valid, ccfg,
     pcfg)`` on one device: the same labels, canonical numbering and
-    size-filter semantics.
+    size-filter semantics. On the card a captured graph per mesh layout
+    and config (``Mesh.run``), the JAX package's jitted ``run``.
     """
-    dev = mesh.device
-    labels, num, overflow = _cluster_bands(
-        mesh, axis, xyz.to(dev)[None], valid.to(dev)[None], ccfg, pcfg, scfg)
+    labels, num, overflow = mesh.run(
+        ("cluster_spatial", axis), functools.partial(_spatial_program, mesh,
+                                                     axis),
+        (ccfg, pcfg, scfg), xyz[None], valid[None])
     return ClusteringResult(labels[0], num[0], overflow[0])
 
 
@@ -322,15 +345,15 @@ def cluster_spatial_2d(mesh: Mesh, xyzs: torch.Tensor, valids: torch.Tensor,
     frames shard over `data_axis` (each rank clusters its own frames),
     each frame's x-bands over `space_axis`; the result, gathered over the
     data axis, has every frame on every rank, each bit-identical to the
-    single-device clustering.
+    single-device clustering. On the card a captured graph
+    (``Mesh.run``), the JAX package's jitted ``run_2d``.
     """
     b = xyzs.shape[0]
     if b != mesh.shape[data_axis]:
         raise ValueError(f"batch {b} must equal the data axis size "
                          f"{mesh.shape[data_axis]}")
-    dev = mesh.device
-    labels, nums, overflows = _cluster_bands(
-        mesh, space_axis, mesh.local(xyzs.to(dev), data_axis),
-        mesh.local(valids.to(dev), data_axis), ccfg, pcfg, scfg)
-    return ClusteringResult(*(mesh.all_gather(t, data_axis)
-                              for t in (labels, nums, overflows)))
+    axes = (data_axis, space_axis)
+    return ClusteringResult(*mesh.run(
+        ("cluster_spatial_2d", axes),
+        functools.partial(_spatial_2d_program, mesh, axes),
+        (ccfg, pcfg, scfg), xyzs, valids))

@@ -10,7 +10,8 @@ captured once per (step function, B, config) and replayed as ONE graph
 launch, both hand kernels (``tier_min_d2``, ``union_find``) inside it.
 
 ``CompiledStep`` owns static inputs, (B, N, 3) f32 points and (B, N) bool
-masks with N = ``config.pipeline.max_points``. A call copies the caller's
+masks, N the caller's ``points`` (``config.pipeline.max_points`` when
+it gives none). A call copies the caller's
 frames into them on the current stream (device to device, ordered before
 the replay), replays the graph on that stream and returns the static
 outputs, which the next call overwrites. Static inputs, rather than a
@@ -38,10 +39,29 @@ CUDA kernel function (CUDA's DOT print of the captured graph), and
 replay's kernels node by node, cross-checks them on the card
 (``tools/kernel_bench.py::kernel_counts``).
 
-``live_graphs()`` counts the CompiledSteps whose graph is held; a
-short torch.profiler profile of kernels launched from Python loses
-events while one is (``tools/kernel_bench.py::profiled`` refuses to run
-then), and ``release()`` frees a graph before its owner goes.
+The registry (``replay_copy``, ``programs``) holds the programs of
+the parallel path (``parallel/*``), the counterparts of the JAX
+package's jitted programs built once per mesh and config through
+``functools.lru_cache`` (``parallel/spatial.py:165``,
+``frame_spatial.py:85``) or ``static_argnames`` (``sharded.py:53,93``).
+It keys each graph on what fixes the captured work: the program and what
+it closes over (a mesh's layout: shards and ranks per axis, this rank,
+its device and process group; see ``parallel/mesh.py::Mesh.layout``),
+its configs, its static inputs' shape and its device; equal meshes share
+one graph. A program whose mesh has a process group holds its NCCL
+collectives inside the graph: the warm-up steps run the first
+collective, which makes the communicator, before the capture.
+``replay_copy`` returns a device-to-device copy of every output, as the
+JAX programs return fresh arrays; ``release_graphs`` frees one entry or
+all of them (the next call captures again). On a process group every
+rank must capture, replay and release the same programs in the same
+order, as every rank calls a collective.
+
+``live_graphs()`` counts the CompiledSteps whose graph is held,
+registered ones included; a short torch.profiler profile of kernels
+launched from Python loses events while one is
+(``tools/kernel_bench.py::profiled`` refuses to run then), and
+``release()`` frees a graph before its owner goes.
 """
 
 from __future__ import annotations
@@ -57,10 +77,11 @@ from typing import Callable
 
 import torch
 
-from ..config import EngineConfig
+from ..types import map_leaves
 
 WARMUP_STEPS = 2   # eager steps on a side stream before the capture
 _LIVE: "weakref.WeakSet" = weakref.WeakSet()   # CompiledSteps holding a graph
+_REGISTRY: dict = {}   # registered programs: key -> CompiledStep
 
 
 def live_graphs() -> int:
@@ -92,6 +113,13 @@ def dot_nodes(dot: str) -> list:
     """The attribute text of each node of a CUDA graph's DOT print (its
     edges left out)."""
     return _DOT_NODE.findall(dot)
+
+
+def node_kind(node: str) -> str:
+    """The kind of a node of a CUDA graph's DOT print (KERNEL, MEMCPY,
+    MEMSET, EVENT_RECORD, ...), from its attribute text."""
+    kind = re.search(r'label="\{\s*(\w+)', node)
+    return kind.group(1) if kind else ""
 
 
 def _mangled_name(symbol: str) -> str:
@@ -136,19 +164,21 @@ class CompiledStep:
     (``device_frame_step_packed_batched``, ``device_frame_step_batched``)
     or any function of (B, N, 3) f32 points and (B, N) bool masks with
     static shapes and no host syncs, returning a tensor or a tuple of
-    tensors. Built on the card (``device=None`` means ``cuda``); raises on
-    the CPU and when the capture fails.
+    tensors; config is what fn takes beside them (any value). N is
+    `points`, or ``config.pipeline.max_points`` when it is None; a
+    single-frame program takes B = 1. Built on the card (``device=None``
+    means ``cuda``); raises on the CPU and when the capture fails.
 
     Attributes: ``outputs`` (the static outputs), ``capture_s`` (seconds
     of the capture alone), ``pool_bytes`` (device memory the graph's pool
     took), ``replays`` (the graph's launches so far).
     """
 
-    def __init__(self, fn: Callable, config: EngineConfig, batch: int,
-                 device=None):
+    def __init__(self, fn: Callable, config, batch: int, device=None,
+                 points: int = None):
         self.device = dev = torch.device(device if device is not None
                                          else "cuda")
-        n = config.pipeline.max_points
+        n = config.pipeline.max_points if points is None else points
         self._xyz = torch.zeros((batch, n, 3), dtype=torch.float32,
                                 device=dev)
         self._mask = torch.zeros((batch, n), dtype=torch.bool, device=dev)
@@ -189,6 +219,20 @@ class CompiledStep:
         return sum(names_kernel(node, kernel)
                    for node in dot_nodes(self.dot()))
 
+    def node_kinds(self) -> dict:
+        """{node kind: nodes} of the captured graph."""
+        kinds: dict = {}
+        for node in dot_nodes(self.dot()):
+            kinds[node_kind(node)] = kinds.get(node_kind(node), 0) + 1
+        return kinds
+
+    def nccl_nodes(self) -> int:
+        """The graph's kernel nodes that run an NCCL kernel (a collective
+        or a P2P captured with it; NCCL may copy with a MEMCPY node
+        instead where the group has one rank)."""
+        return sum(node_kind(node) == "KERNEL" and "nccl" in node.lower()
+                   for node in dot_nodes(self.dot()))
+
     def release(self) -> None:
         """Free the graph and its outputs (its pool returns to the
         allocator's cache); a later call raises."""
@@ -221,7 +265,7 @@ def uses_graph(device, eager: bool = False) -> bool:
     return not eager and torch.device(device).type == "cuda"
 
 
-def batched_step(fn: Callable, config: EngineConfig, batch: int, device,
+def batched_step(fn: Callable, config, batch: int, device,
                  eager: bool = False) -> Callable:
     """``fn(xyzs, masks, config)`` for B frames as a callable of (xyzs,
     masks) on the route of ``uses_graph``: a CompiledStep, or fn called
@@ -229,3 +273,35 @@ def batched_step(fn: Callable, config: EngineConfig, batch: int, device,
     if uses_graph(device, eager):
         return CompiledStep(fn, config, batch, device)
     return functools.partial(fn, config=config)
+
+
+def replay_copy(key: tuple, fn: Callable, config, xyzs: torch.Tensor,
+                masks: torch.Tensor, device):
+    """``fn(xyzs, masks, config)`` for (B, N) frames on `device`, replayed
+    on its registered graph, which the first call with an equal key
+    captures; a device-to-device copy of each output, which no later
+    replay overwrites. `key` names the program and what fn closes over;
+    with config, B, N and the device it keys the registry (module
+    docstring)."""
+    b, n = masks.shape
+    full = (key, config, b, n, torch.device(device))
+    step = _REGISTRY.get(full)
+    if step is None:
+        step = _REGISTRY[full] = CompiledStep(fn, config, b, device, n)
+    return map_leaves(torch.clone, step(xyzs, masks))
+
+
+def programs() -> dict:
+    """The registered programs: {registry key: CompiledStep}."""
+    return dict(_REGISTRY)
+
+
+def release_graphs(key: tuple = None) -> int:
+    """Free the registered graph of `key` (a key of ``programs()``), or
+    every registered graph when `key` is None; the next call of a freed
+    program captures it again. Returns how many were freed."""
+    keys = list(_REGISTRY) if key is None else [key] if key in _REGISTRY \
+        else []
+    for k in keys:
+        _REGISTRY.pop(k).release()
+    return len(keys)

@@ -43,6 +43,22 @@ from . import compiled
 from .pipeline import device_frame_step_packed_batched, host_outputs_packed
 
 
+def segment_stage(xyzs: torch.Tensor, masks: torch.Tensor,
+                  config: EngineConfig):
+    """The stage-timed replay's segmentation stage, (B, N) frames: their
+    SegmentationResult and obstacle mask (the JAX stream's ``_seg``)."""
+    seg = gpf_segment(xyzs, masks, config.segmentation)
+    return seg, masks & (seg.labels == SEG_OBSTACLE)
+
+
+def cluster_stage(xyzs: torch.Tensor, obstacle: torch.Tensor,
+                  config: EngineConfig):
+    """The stage-timed replay's clustering stage: ``stixel.cluster`` of
+    the obstacle masks (the JAX stream's ``_cluster``)."""
+    return _stixel.cluster(xyzs, obstacle, config.clustering,
+                           config.pipeline)
+
+
 @dataclasses.dataclass
 class FrameMetrics:
     """Per-frame observability record (ref: processor.cpp logging)."""
@@ -62,11 +78,14 @@ class FrameMetrics:
     frames_dropped: int = 0
     # per-stage times (stage_timing=True only; mirrors the reference's
     # separate seg/cluster/polygonize logs, ref: src/processor.cpp:167-168,
-    # 204-205,218-219). TRIAGE-GRADE: seg and cluster are standalone steps,
-    # each waited for, and t_hull is the fused step's residual after
-    # subtracting them, so the split differs from the fused step's true
-    # internals (which share sorts across stages); for optimization use
-    # the device traces (torch.profiler, tools/step_bench.py).
+    # 204-205,218-219). TRIAGE-GRADE: seg and cluster are standalone
+    # stages (``segment_stage``, ``cluster_stage``) on the stream's route,
+    # each waited for: on the card two B = 1 graphs replayed, as the step
+    # is, so the three times are all compiled ones; t_hull is the fused
+    # step's residual after subtracting them, so the split differs from
+    # the fused step's true internals (which share sorts across stages);
+    # for optimization use the device traces (torch.profiler,
+    # tools/step_bench.py).
     t_seg_ms: Optional[float] = None
     t_cluster_ms: Optional[float] = None
     t_hull_ms: Optional[float] = None
@@ -110,6 +129,7 @@ class ReplayStream:
         self._pinned: List[torch.Tensor] = []
         self.eager = eager
         self._stepper = None      # the B = 1 step, built by the first step
+        self._stages = None       # the stage-timed replay's two stages
 
     def _step(self, fid: int) -> torch.Tensor:
         if self._stepper is None:
@@ -126,12 +146,21 @@ class ReplayStream:
         return (self._stepper
                 if isinstance(self._stepper, compiled.CompiledStep) else None)
 
+    @property
+    def stage_graphs(self) -> tuple:
+        """The stage-timed replay's compiled stages (segmentation,
+        clustering), () before the first stage-timed step and on the
+        eager route."""
+        return tuple(s for s in self._stages or ()
+                     if isinstance(s, compiled.CompiledStep))
+
     def release(self) -> None:
-        """Free the compiled step's graph; the next step captures it
-        again."""
-        if self.graph is not None:
-            self.graph.release()
-        self._stepper = None
+        """Free the compiled step's graph and the stages'; the next step
+        captures them again."""
+        for graph in (self.graph, *self.stage_graphs):
+            if graph is not None:
+                graph.release()
+        self._stepper = self._stages = None
 
     def sync(self) -> None:
         """Wait for the work queued on the stream's device."""
@@ -147,15 +176,18 @@ class ReplayStream:
     def _stage_times(self, fid: int):
         """Standalone segmentation, then clustering, each waited for, as
         the reference times each stage in its callback
-        (ref: src/processor.cpp:148-219); (seg s, cluster s)."""
-        cfg = self.config
-        xyz, mask = self.xyz[fid], self.mask[fid]
+        (ref: src/processor.cpp:148-219); (seg s, cluster s). Each stage
+        is a B = 1 step on the stream's route (``compiled.batched_step``:
+        a graph on the card unless ``eager``), the JAX stream's ``_seg``
+        and ``_cluster`` jits; the clustering stage's mask input is the
+        segmentation stage's obstacle mask, copied device to device."""
+        seg_stage, cl_stage = self._stages
+        xyz = self.xyz[fid:fid + 1]
         t0 = time.perf_counter()
-        seg = gpf_segment(xyz, mask, cfg.segmentation)
-        obstacle = mask & (seg.labels == SEG_OBSTACLE)
+        _, obstacle = seg_stage(xyz, self.mask[fid:fid + 1])
         self.sync()
         t1 = time.perf_counter()
-        _stixel.cluster(xyz, obstacle, cfg.clustering, cfg.pipeline)
+        cl_stage(xyz, obstacle)
         self.sync()
         return t1 - t0, time.perf_counter() - t1
 
@@ -184,6 +216,11 @@ class ReplayStream:
         """
         period = 1.0 / self.config.pipeline.replay_rate_hz
         self.warmup()
+        if stage_timing and self._stages is None:
+            # built (on the card: captured) before the first timed frame
+            self._stages = tuple(compiled.batched_step(
+                fn, self.config, 1, self.device, self.eager)
+                for fn in (segment_stage, cluster_stage))
         # (fid, dispatch time, host buf, event, stage times, drops)
         inflight: List = []
         depth = self.config.pipeline.queue_depth

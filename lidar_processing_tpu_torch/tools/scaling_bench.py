@@ -12,6 +12,13 @@ divide (1 on one rank):
         [--device cuda] [--ranks N]
     torchrun --nproc-per-node N -m lidar_processing_tpu_torch.tools.scaling_bench
 
+On the card each entry point replays its graph (runtime/compiled.py:
+the program captured once per mesh layout, config and batch, its NCCL
+collectives inside), as the JAX tool times its jitted calls; the first
+call of each case, outside the timed repeats, captures it, and every
+registered graph is released when a case ends. On the CPU the calls run
+eagerly.
+
 Read the layout line before the numbers. One rank holds every shard of an
 axis and runs them as one batch, so on one card T(1)/T(n) measures the
 mesh's overhead (the collectives, the reassembly), not chip scaling.
@@ -36,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import DEFAULT_CONFIG, SpatialConfig
+from ..runtime import compiled
 
 SHARDS = (1, 2, 4, 8)  # shard counts of the data axis, as the JAX tool's
 
@@ -74,8 +82,10 @@ def bench_config(cap: int):
 
 
 def _best_s(call, device, reps: int) -> float:
-    """Best wall seconds of call() over `reps` runs after one warmup, each
-    ended by a device sync (and a barrier across ranks)."""
+    """Best wall seconds of call() over `reps` runs after one warmup (on
+    the card the capture of call()'s graph), each ended by a device sync
+    (and a barrier across ranks); then every registered graph is
+    released (``compiled.release_graphs``)."""
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -89,6 +99,7 @@ def _best_s(call, device, reps: int) -> float:
         call()
         sync()
         best = min(best, time.perf_counter() - t0)
+    compiled.release_graphs()
     return best
 
 

@@ -9,7 +9,10 @@ test_torch_stream.py's small config: a ReplayStream on the compiled route
 yields the JAX package's ReplayStream outputs frame for frame (the depth-2
 window must copy the static payload before the next step overwrites it);
 the wrappers count the capture's launches and no replay's; a capture that
-raises makes CompiledStep and the stream raise, with no eager fallback.
+raises makes CompiledStep and the stream raise, with no eager fallback;
+the stage-timed replay on its two compiled stages yields the JAX
+stream's stage-timed outputs (one JAX stream serves the module, so its
+jitted step compiles once).
 Without the seam CompiledStep raises on the CPU, and the CPU's route is
 the eager step.
 """
@@ -24,10 +27,13 @@ from lidar_processing_tpu_torch.io import pcd as tpcd
 from lidar_processing_tpu_torch.io.synthetic import pad_frame, street_scene
 from lidar_processing_tpu_torch.kernels import tier_min_d2 as ttm
 from lidar_processing_tpu_torch.kernels import union_find as tuf
+from lidar_processing_tpu_torch.ops import stixel as sx
+from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
 from lidar_processing_tpu_torch.runtime import compiled
 from lidar_processing_tpu_torch.runtime.pipeline import (
     device_frame_step_packed, device_frame_step_packed_batched)
 from lidar_processing_tpu_torch.runtime.stream import ReplayStream
+from lidar_processing_tpu_torch.types import SEG_OBSTACLE
 from test_torch_native import jax_native, jax_native_lib  # noqa: F401
 from test_torch_stream import CAP, JCFG, SEEDS, TCFG, _assert_outputs_equal
 
@@ -56,18 +62,27 @@ def eager_capture(run, device):
 def graph_route(monkeypatch):
     """The compiled route on the CPU, through the seam."""
     monkeypatch.setattr(compiled, "capture", eager_capture)
-    monkeypatch.setattr(compiled, "uses_graph", lambda device, eager: True)
+    monkeypatch.setattr(compiled, "uses_graph",
+                        lambda device, eager=False: True)
 
 
-@pytest.fixture
-def frames(tmp_path):
+@pytest.fixture(scope="module")
+def frames(tmp_path_factory):
+    path = tmp_path_factory.mktemp("frames")
     for seed in SEEDS:
         xyz, inten = street_scene(seed, "small")
-        tpcd.write_pcd_xyzi(tmp_path / f"{seed:06d}.pcd", xyz, inten)
-    return str(tmp_path)
+        tpcd.write_pcd_xyzi(path / f"{seed:06d}.pcd", xyz, inten)
+    return str(path)
 
 
-def test_compiled_stream_matches_jax_stream(frames, jax_native,
+@pytest.fixture(scope="module")
+def jax_stream(frames):
+    """One JAX ReplayStream over the frames for the module: its jitted
+    step (a closure of the instance) compiles once."""
+    return JReplay(JCFG, data_dir=frames)
+
+
+def test_compiled_stream_matches_jax_stream(frames, jax_native, jax_stream,
                                             graph_route):
     """ReplayStream on the compiled route (through the seam) yields the
     JAX stream's outputs frame for frame over 3 frames (0, 1, 0): each
@@ -75,7 +90,7 @@ def test_compiled_stream_matches_jax_stream(frames, jax_native,
     stream = ReplayStream(TCFG, data_dir=frames, device="cpu")
     got = list(stream.run(3))
     assert isinstance(stream.graph, compiled.CompiledStep)
-    want = list(JReplay(JCFG, data_dir=frames).run(3))
+    want = list(jax_stream.run(3))
     assert [m.frame_id for _, m in got] == [0, 1, 0]
     for (go, gm), (wo, wm) in zip(got, want):
         _assert_outputs_equal(go, wo)
@@ -180,3 +195,35 @@ def test_compiled_step_on_the_cpu_raises(frames):
     stream = ReplayStream(TCFG, data_dir=frames, device="cpu")
     stream.warmup()
     assert stream.graph is None and stream._stepper is not None
+
+
+def test_stage_timed_replay_on_compiled_stages_matches_jax(
+        frames, jax_native, jax_stream, graph_route):
+    """ReplayStream(stage_timing=True) on the compiled route (through the
+    seam) yields the JAX stream's stage-timed outputs frame for frame
+    over 3 frames (0, 1, 0), with every stage time set; its two stages
+    are compiled steps (B = 1), equal to gpf_segment + the obstacle mask
+    and to stixel.cluster of that mask; release() frees them."""
+    stream = ReplayStream(TCFG, data_dir=frames, device="cpu")
+    got = list(stream.run(3, stage_timing=True))
+    want = list(jax_stream.run(3, stage_timing=True))
+    assert [m.frame_id for _, m in got] == [0, 1, 0]
+    for (go, gm), (wo, wm) in zip(got, want):
+        _assert_outputs_equal(go, wo)
+        assert (gm.num_clusters, gm.overflow) == (wm.num_clusters,
+                                                  wm.overflow)
+        for t in (gm.t_seg_ms, gm.t_cluster_ms, gm.t_hull_ms):
+            assert t is not None and t >= 0.0
+    seg_stage, cl_stage = stream.stage_graphs
+    assert seg_stage.replays == cl_stage.replays == 3
+    x, m = stream.xyz[1:2], stream.mask[1:2]
+    seg, obstacle = seg_stage(x, m)
+    want_seg = gpf_segment(x, m, TCFG.segmentation)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(seg),
+                                                  leaves(want_seg)))
+    assert torch.equal(obstacle, m & (want_seg.labels == SEG_OBSTACLE))
+    cl = cl_stage(x, obstacle)
+    want_cl = sx.cluster(x, obstacle, TCFG.clustering, TCFG.pipeline)
+    assert all(torch.equal(a, b) for a, b in zip(cl, want_cl))
+    stream.release()
+    assert stream.stage_graphs == () and seg_stage.outputs is None

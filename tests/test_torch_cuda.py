@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from lidar_processing_tpu_torch.config import DEFAULT_CONFIG
+from lidar_processing_tpu_torch.config import DEFAULT_CONFIG, SpatialConfig
 from lidar_processing_tpu_torch.io.synthetic import pad_frame, street_scene
 from lidar_processing_tpu_torch.kernels import probe_uf as puf
 from lidar_processing_tpu_torch.kernels import tier_min_d2 as ttm
@@ -532,30 +532,38 @@ def test_cellgraph_step_on_card_matches_cpu(cuda, seed):
         assert torch.equal(pay_gpu, device_frame_step_packed(x, m, cfg))
 
 
+SCFG = SpatialConfig(block_points=2048, block_clusters=512,
+                     halo_points=512, block_cells=2048, block_columns=1024,
+                     block_supernodes=1536, block_column_pairs=4096,
+                     block_sn_pairs=4096, block_live_edges=1024)
+
+
 def test_cluster_spatial_on_card_matches_single_device(cuda):
     """cluster_spatial on 8 x-band shards on the card (one rank, no
-    process group; the mesh's default device): its 8 bands in one batched
-    stixel run (two tier_min_d2 launches, one union_find), labels equal
-    to stixel.cluster on the card and to the same call on the CPU, bit
-    for bit."""
-    from lidar_processing_tpu_torch.config import SpatialConfig
+    process group; the mesh's default device), on its graph: its 8 bands
+    in one batched stixel run, the wrappers' launches those of the
+    warm-up steps and the capture (two tier_min_d2, one union_find each)
+    and none from a replay, labels equal to stixel.cluster on the card
+    and to the same call on the CPU, bit for bit."""
     from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
     from lidar_processing_tpu_torch.parallel.mesh import make_mesh
     from lidar_processing_tpu_torch.parallel.spatial import cluster_spatial
-    scfg = SpatialConfig(block_points=2048, block_clusters=512,
-                         halo_points=512, block_cells=2048,
-                         block_columns=1024, block_supernodes=1536,
-                         block_column_pairs=4096, block_sn_pairs=4096,
-                         block_live_edges=1024)
+    from lidar_processing_tpu_torch.runtime import compiled
+    scfg = SCFG
     x, m = (torch.from_numpy(a) for a in pad_frame(
         street_scene(0, "small")[0], CAP))
     obst = m & (gpf_segment(x, m, CFG.segmentation).labels == SEG_OBSTACLE)
     mesh = make_mesh(8, "space")
     assert mesh.device.type == "cuda"
+    compiled.release_graphs()
     before = (ttm.tier_min_d2.launches, tuf.cc_labels.launches)
     got = cluster_spatial(mesh, x, obst, CFG.clustering, CFG.pipeline, scfg)
+    calls = compiled.WARMUP_STEPS + 1
     assert (ttm.tier_min_d2.launches, tuf.cc_labels.launches) == (
-        before[0] + 2, before[1] + 1)
+        before[0] + 2 * calls, before[1] + calls)
+    cluster_spatial(mesh, x, obst, CFG.clustering, CFG.pipeline, scfg)
+    assert (ttm.tier_min_d2.launches, tuf.cc_labels.launches) == (
+        before[0] + 2 * calls, before[1] + calls)
     one = tsx.cluster(x.to(cuda), obst.to(cuda), CFG.clustering,
                       CFG.pipeline)
     on_cpu = cluster_spatial(make_mesh(8, "space", device="cpu"), x, obst,
@@ -564,15 +572,18 @@ def test_cluster_spatial_on_card_matches_single_device(cuda):
         assert g.dtype == w.dtype and torch.equal(g, w)
         assert torch.equal(g.cpu(), c)
     assert int(got.overflow) == 0 and int(got.num_clusters) > 0
+    compiled.release_graphs()
 
 
 def test_four_nccl_ranks_equal_one_rank(cuda, tmp_path):
     """The parallel entry points over 4 NCCL ranks, one a card (needs 4
-    GPUs): 8 x-band shards as 4 ranks x 2 on a small scene and on a
-    full-size one, the 2 x 4 mesh as 2 data x 2 space ranks x 2 shards,
-    sharded_batch_step of 4 frames, and the spatial step; every rank's
-    result equal to one rank holding every shard, bit for bit."""
-    from lidar_processing_tpu_torch.config import SpatialConfig
+    GPUs), each on its captured graph with the P2P shift and the
+    all_gathers inside: 8 x-band shards as 4 ranks x 2 on a small scene
+    and on a full-size one, the 2 x 4 mesh as 2 data x 2 space ranks x 2
+    shards, sharded_batch_step of 4 frames, and the spatial step, each
+    called twice (capture, then a replay); every rank's results, read
+    after the second call, equal to one rank holding every shard, bit
+    for bit."""
     from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
     from lidar_processing_tpu_torch.parallel import launch
     from lidar_processing_tpu_torch.parallel.frame_spatial import \
@@ -583,11 +594,7 @@ def test_four_nccl_ranks_equal_one_rank(cuda, tmp_path):
         cluster_spatial, cluster_spatial_2d)
     if torch.cuda.device_count() < 4:
         pytest.skip("needs 4 GPUs: NCCL takes one rank a card")
-    scfg = SpatialConfig(block_points=2048, block_clusters=512,
-                         halo_points=512, block_cells=2048,
-                         block_columns=1024, block_supernodes=1536,
-                         block_column_pairs=4096, block_sn_pairs=4096,
-                         block_live_edges=1024)
+    scfg = SCFG
     small = CFG.replace(spatial=scfg)
     sx_, sm_ = (np.stack(a) for a in zip(*(
         pad_frame(street_scene(s, "small")[0], CAP) for s in range(4))))
@@ -606,9 +613,19 @@ def test_four_nccl_ranks_equal_one_rank(cuda, tmp_path):
         (sharded_batch_step, {"data": 4}, (sx_, sm_, small)),
         (device_frame_step_spatial, {"space": 8}, (sx_[0], sm_[0], small)),
     ]
-    ranks = launch.spawn(launch.run_entry_points, 4, "cuda", calls,
-                         rdzv_dir=tmp_path, backend="nccl", timeout_s=600)
-    want = launch.run_entry_points("cuda", calls)
+    runs = launch.spawn(launch.run_on_graphs, 4, "cuda", calls, 2,
+                        rdzv_dir=tmp_path, backend="nccl", timeout_s=600)
+    want = [r for r in launch.run_entry_points("cuda", calls)
+            for _ in range(2)]
+    ranks = [got for got, _ in runs]
+    for rank, (_, graphs) in enumerate(runs):
+        print(f"rank {rank} graphs: {graphs}")
+        assert sorted(g["name"] for g in graphs) == [
+            "cluster_spatial 8", "cluster_spatial 8", "cluster_spatial_2d 2x4",
+            "device_frame_step_spatial 8", "sharded_batch_step 4"], graphs
+        for g in graphs:
+            assert (g["tier_min_d2"], g["union_find"]) == (2, 1), g
+            assert g["nccl"] >= 1 and g["replays"] == 2, g
 
     def leaves(tree):
         return ([leaf for t in tree for leaf in leaves(t)]
@@ -621,7 +638,8 @@ def test_four_nccl_ranks_equal_one_rank(cuda, tmp_path):
             for a, b in zip(gl, wl):
                 assert a.dtype == b.dtype and a.shape == b.shape, (rank, i)
                 assert a.tobytes() == b.tobytes(), (rank, i)
-    assert int(want[1][2]) == 0 and int(want[1][1]) > 300
+    assert all(len(got) == len(want) for got in ranks)
+    assert int(want[2][2]) == 0 and int(want[2][1]) > 300
 
 
 def _step_and_payload(xyzs, masks, cfg):
@@ -707,3 +725,180 @@ def test_a_syncing_step_raises_at_capture(cuda):
         street_scene(0, "small")[0], CAP))
     assert torch.equal(device_frame_step_packed(x, m, CFG).cpu(),
                        device_frame_step_packed(x.cpu(), m.cpu(), CFG))
+
+
+@pytest.fixture(scope="module")
+def nccl_rank():
+    """One NCCL rank (world size 1) at a free localhost port for the
+    parallel graph tests below (the last of this module); every
+    registered graph is released before the group is destroyed."""
+    import socket
+    import torch.distributed as dist
+    from lidar_processing_tpu_torch.runtime import compiled
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL runs on cards")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    yield dist.get_backend()
+    compiled.release_graphs()
+    dist.destroy_process_group()
+
+
+def _graph_of(program: str):
+    """The one registered graph of the parallel entry point `program`."""
+    from lidar_processing_tpu_torch.parallel.mesh import program_name
+    from lidar_processing_tpu_torch.runtime import compiled
+    found = [step for key, step in compiled.programs().items()
+             if program_name(key).split()[0] == program]
+    assert len(found) == 1, (program, list(compiled.programs()))
+    return found[0]
+
+
+def _parallel_cases(cuda):
+    """{case: (entry point's program, public call, eager body's result
+    as the public call returns it, clusters)} on 8 small scenes."""
+    import math
+    from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
+    from lidar_processing_tpu_torch.parallel import frame_spatial as fs
+    from lidar_processing_tpu_torch.parallel import sharded as sh
+    from lidar_processing_tpu_torch.parallel import spatial as sp
+    from lidar_processing_tpu_torch.parallel.mesh import (make_mesh,
+                                                          make_mesh_2d)
+    from lidar_processing_tpu_torch.types import ClusteringResult
+    xs, ms = (torch.from_numpy(np.stack(a)).to(cuda) for a in zip(*(
+        pad_frame(street_scene(s, "small")[0], CAP) for s in range(8))))
+    obst = ms & (gpf_segment(xs, ms, CFG.segmentation).labels
+                 == SEG_OBSTACLE)
+    cfg = CFG.replace(spatial=SCFG)
+    cl = (cfg.clustering, cfg.pipeline, cfg.spatial)
+    r = math.sqrt(cfg.clustering.distance_squared)
+    m2d = make_mesh_2d(2, 4)
+
+    def one(out):
+        return ClusteringResult(*(t[0] for t in out))
+    cases = {f"cluster_spatial {s}": (
+        "cluster_spatial",
+        lambda s=s: sp.cluster_spatial(make_mesh(s, "space"), xs[0],
+                                       obst[0], *cl),
+        lambda s=s: one(sp._cluster_bands(make_mesh(s, "space"), "space",
+                                          xs[:1], obst[:1], *cl)), True)
+        for s in (8, 4)}
+    cases.update({
+        "cluster_spatial_2d": (
+            "cluster_spatial_2d",
+            lambda: sp.cluster_spatial_2d(m2d, xs[:2], obst[:2], *cl),
+            lambda: ClusteringResult(*sp._spatial_2d_program(
+                m2d, ("data", "space"), xs[:2], obst[:2], cl)), True),
+        "gpf_spatial": (
+            "gpf_spatial",
+            lambda: fs.gpf_spatial(make_mesh(8, "space"), xs[0], ms[0],
+                                   cfg.segmentation, cfg.spatial, r),
+            lambda: fs._gpf_bands(make_mesh(8, "space"), xs[0], ms[0],
+                                  cfg.segmentation, cfg.spatial, r,
+                                  "space"), False),
+        "device_frame_step_spatial": (
+            "device_frame_step_spatial",
+            lambda: fs.device_frame_step_spatial(make_mesh(8, "space"),
+                                                 xs[0], ms[0], cfg),
+            lambda: fs._step_spatial(make_mesh(8, "space"), xs[0], ms[0],
+                                     cfg, "space"), True),
+        "sharded_batch_step": (
+            "sharded_batch_step",
+            lambda: sh.sharded_batch_step(make_mesh(8, "data"), xs, ms, cfg),
+            lambda: sh._batch_step(make_mesh(8, "data"), xs, ms, cfg), True),
+        "sharded_pipeline_2d": (
+            "sharded_pipeline_2d",
+            lambda: sh.sharded_pipeline_2d(m2d, xs[:2], ms[:2], cfg),
+            lambda: sh._pipeline_2d(m2d, xs[:2], ms[:2], cfg), True)})
+    return cases
+
+
+PARALLEL_CASES = ("cluster_spatial 8", "cluster_spatial 4",
+                  "cluster_spatial_2d", "gpf_spatial",
+                  "device_frame_step_spatial", "sharded_batch_step",
+                  "sharded_pipeline_2d")
+
+
+@pytest.mark.parametrize("case", PARALLEL_CASES)
+def test_parallel_graph_equals_eager_body(cuda, nccl_rank, case):
+    """Each public entry point of the parallel path on one NCCL rank runs
+    its captured graph (equal meshes built anew share it): the first
+    call's result and a second call's (a replay, which launches nothing
+    from Python and leaves the first call's tensors as they were) equal
+    the eager body's bit for bit; a graph that clusters holds
+    {tier_min_d2_kernel: 2, union_find_kernel: 1} kernel nodes,
+    gpf_spatial's none of them; released, it is captured again."""
+    from lidar_processing_tpu_torch.runtime import compiled
+    leaves = torch.utils._pytree.tree_leaves
+    assert nccl_rank == "nccl"
+    program, call, eager, clusters = _parallel_cases(cuda)[case]
+    compiled.release_graphs()
+    live = compiled.live_graphs()
+    first = call()
+    saved = [t.clone() for t in leaves(first)]
+    assert compiled.live_graphs() == live + 1
+    counts = (ttm.tier_min_d2.launches, tuf.cc_labels.launches)
+    second = call()
+    assert (ttm.tier_min_d2.launches, tuf.cc_labels.launches) == counts
+    graph = _graph_of(program)
+    assert graph.replays == 2
+    want = leaves(eager())
+    for got in (leaves(first), saved, leaves(second)):
+        assert len(got) == len(want)
+        assert all(_same_bits(g, w) for g, w in zip(got, want)), case
+    nodes = (graph.kernel_nodes("tier_min_d2_kernel"),
+             graph.kernel_nodes("union_find_kernel"))
+    assert nodes == ((2, 1) if clusters else (0, 0)), nodes
+    assert compiled.release_graphs() == 1
+    assert compiled.live_graphs() == live
+    assert all(_same_bits(g, w) for g, w in zip(leaves(call()), want))
+    assert _graph_of(program).replays == 1
+    compiled.release_graphs()
+
+
+def test_stage_graphs_equal_eager_stages(cuda, tmp_path):
+    """The stage-timed replay on the card replays two B = 1 graphs,
+    segment_stage and cluster_stage: on frames 0 and 1 each equals its
+    eager stage bit for bit (the clustering graph fed the segmentation
+    graph's obstacle mask), the clustering graph holds
+    {tier_min_d2_kernel: 2, union_find_kernel: 1} kernel nodes and the
+    segmentation graph none; the stage-timed run yields the eager route's
+    outputs and sets every stage time."""
+    from lidar_processing_tpu_torch.io.pcd import write_pcd_xyzi
+    from lidar_processing_tpu_torch.runtime.stream import (ReplayStream,
+                                                           cluster_stage,
+                                                           segment_stage)
+    from lidar_processing_tpu_torch.types import map_leaves
+    leaves = torch.utils._pytree.tree_leaves
+    for seed in (0, 1):
+        write_pcd_xyzi(tmp_path / f"{seed:06d}.pcd",
+                       *street_scene(seed, "small"))
+    graph = ReplayStream(CFG, data_dir=str(tmp_path), device=cuda)
+    eager = ReplayStream(CFG, data_dir=str(tmp_path), device=cuda,
+                         eager=True)
+    got = list(graph.run(2, stage_timing=True))
+    want = list(eager.run(2, stage_timing=True))
+    assert len(graph.stage_graphs) == 2 and eager.stage_graphs == ()
+    seg_graph, cl_graph = graph.stage_graphs
+    for f in (0, 1):
+        x, m = graph.xyz[f:f + 1], graph.mask[f:f + 1]
+        seg = map_leaves(torch.clone, seg_graph(x, m))
+        seg_want = segment_stage(x, m, CFG)
+        assert all(_same_bits(g, w) for g, w in zip(leaves(seg),
+                                                    leaves(seg_want)))
+        cl = cl_graph(x, seg[1])
+        cl_want = cluster_stage(x, seg_want[1], CFG)
+        assert all(_same_bits(g, w) for g, w in zip(leaves(cl),
+                                                    leaves(cl_want)))
+    assert [(g.kernel_nodes("tier_min_d2_kernel"),
+             g.kernel_nodes("union_find_kernel"))
+            for g in (seg_graph, cl_graph)] == [(0, 0), (2, 1)]
+    for (go, gm), (wo, wm) in zip(got, want):
+        assert gm.frame_id == wm.frame_id
+        assert np.array_equal(go.cluster_labels, wo.cluster_labels)
+        assert None not in (gm.t_seg_ms, gm.t_cluster_ms, gm.t_hull_ms)
+    graph.release()
+    assert graph.stage_graphs == () and graph.graph is None
