@@ -24,7 +24,15 @@ Phases (any failure raises, so the script never exits 0 after one):
      (its kernel nodes, read from CUDA's DOT print of that graph), and
      the run must have replayed it once a step; nodes x replays are the
      main path's launches in the kernels line; the native
-     chi_hulls_batch must be called once a frame;
+     chi_hulls_batch must be called once a frame; the graph must hold
+     globaltimer_stamp_kernel five times (a stamp a stage boundary, the
+     Python count five a warm-up step and the capture plus the clock
+     calibrations'), every frame's four device stages must take some
+     time with its first and last stamps, mapped onto the host clock,
+     inside its dispatch's start and its device wait's end (within the
+     calibration's error and 20 us), and frame 0's stats row, replayed
+     again, must hold its rising stamps in columns 0-4 inside the host's
+     bracket and the run's counters, equal to cluster_debug's;
   4. CUDA vs CPU: frame 0's cluster_fused on the card (kernels) and on the
      CPU (twins) from the same sorted inputs must agree bit for bit, and
      the two segmentations within max(2, n // 1000) labels; a small
@@ -243,7 +251,9 @@ H100_FP32_PER_S = 67e12
 CDIST = "donot_use_mm_for_euclid_dist"
 # each main-path kernel wrapper's CUDA kernel, as torch.profiler names it
 KERNEL_OF = {"tier_min_d2": "tier_min_d2_kernel",
-             "union_find": "union_find_kernel", "min_d2": "min_d2_kernel"}
+             "union_find": "union_find_kernel", "min_d2": "min_d2_kernel",
+             "stamp": "globaltimer_stamp_kernel"}
+STAMP_SLACK_NS = 20_000    # clock drift allowed beyond the calibration's
 BATCHES = (4, 8)           # frames per batched step, beside B = 1
 KERNELS_B1_MAX = 2995      # CUDA kernels a B = 1 step: 2852 measured + 5%
 CELL_CAPACITY = 128        # the cellgraph phase's cell_capacity (shipped: 64)
@@ -1410,17 +1420,27 @@ def run_main_path(tmp: Path, device):
     import torch
     from lidar_processing_tpu_torch.config import DEFAULT_CONFIG
     from lidar_processing_tpu_torch.kernels.min_d2 import min_d2_planar
+    from lidar_processing_tpu_torch.kernels.stamp import stamp
     from lidar_processing_tpu_torch.kernels.tier_min_d2 import tier_min_d2
     from lidar_processing_tpu_torch.kernels.union_find import cc_labels
     from lidar_processing_tpu_torch.ops.hull_native import chi_hulls_batch
     from lidar_processing_tpu_torch.runtime.compiled import WARMUP_STEPS
-    from lidar_processing_tpu_torch.runtime.stream import ReplayStream
+    from lidar_processing_tpu_torch.runtime.pipeline import STAGES
+    from lidar_processing_tpu_torch.runtime.stream import (
+        CALIBRATION_TRIES, ReplayStream)
 
     kernels = {"tier_min_d2": tier_min_d2, "union_find": cc_labels,
-               "min_d2": min_d2_planar}
+               "min_d2": min_d2_planar, "stamp": stamp}
     for fn in kernels.values():
         fn.launches = 0
     stream = ReplayStream(DEFAULT_CONFIG, data_dir=str(tmp), device=device)
+    errors = []                           # each calibration's error (ns)
+    calibrate = stream.calibrate
+
+    def calibrate_counted():
+        calibrate()
+        errors.append(stream.clock_error_ns)
+    stream.calibrate = calibrate_counted
     stream.warmup()                       # first run: capture, kernel build
     t0 = time.perf_counter()
     stream.warmup()
@@ -1461,25 +1481,32 @@ def run_main_path(tmp: Path, device):
                 np.isfinite(o).all() and o.shape[1:] == (2,)
                 for o in out.outlines):
             raise AssertionError(f"frame {m.frame_id}: malformed outputs")
-    # from Python: the warm-up steps and the capture, then replays only
+    # from Python: the warm-up steps and the capture, then replays only;
+    # a stamp a stage boundary, and each calibration's bracketed stamps
     calls = WARMUP_STEPS + 1
-    want = {"tier_min_d2": 2 * calls, "union_find": calls, "min_d2": 0}
+    stamps = len(STAGES) + 1
+    want = {"tier_min_d2": 2 * calls, "union_find": calls, "min_d2": 0,
+            "stamp": stamps * calls + CALIBRATION_TRIES * len(errors)}
     if wrapped != want:
         raise AssertionError(f"the wrappers launched {wrapped} from Python, "
                              f"expected {want}")
     check_kernel_nodes(graph, {"tier_min_d2": 2, "union_find": 1,
-                               "min_d2": 0}, "the main path's graph")
+                               "min_d2": 0, "stamp": stamps},
+                       "the main path's graph")
     if graph.replays != N_FRAMES + WARMUP_FRAMES:
         raise AssertionError(f"{graph.replays} replays for "
                              f"{N_FRAMES + WARMUP_FRAMES} steps")
     if route["chi_hulls_batch"] != N_FRAMES:
         raise AssertionError(f"{route['chi_hulls_batch']} native "
                              f"chi_hulls_batch calls for {N_FRAMES} frames")
+    calibrations = len(errors)
+    check_stamps(stream, results, max(errors))   # replays frame 0 again
     log(f"main path: {N_FRAMES} frames + {WARMUP_FRAMES} warmup through "
         f"ReplayStream on its compiled step (captured in "
         f"{graph.capture_s:.3f} s, pool {graph.pool_bytes / 2**20:.0f} "
         f"MiB); wrappers' launches from Python (counts set to 0 before the "
-        f"stream was built) {wrapped}; the graph's kernel nodes {nodes} x "
+        f"stream was built; stamp's include {calibrations} calibrations of "
+        f"{CALIBRATION_TRIES}) {wrapped}; the graph's kernel nodes {nodes} x "
         f"{graph.replays} replays in the run = launches {launches}; host "
         f"outlines: "
         f"{route['chi_hulls_batch']} native chi_hulls_batch calls, "
@@ -1487,6 +1514,71 @@ def run_main_path(tmp: Path, device):
         f"chain; peak device memory "
         f"{torch.cuda.max_memory_allocated(device) / 2**20:.0f} MiB")
     return stream, results, launches, e2e_ms, route
+
+
+def check_stamps(stream, results, error_ns: int) -> None:
+    """The stamps the main path's frames carry: on every delivered frame
+    the four device stages each take some time, the first stamp falls
+    after the dispatch began and the last before the wait on the payload
+    ended, both mapped onto the host clock within the largest
+    calibration error and STAMP_SLACK_NS; then frame 0's stats row,
+    replayed again, holds its five rising stamps in columns 0-4 inside
+    the host's bracket around the replay and its counters in the columns
+    after them, equal to the run's and to cluster_debug's counts."""
+    import torch
+    from lidar_processing_tpu_torch.ops import stixel as tsx
+    from lidar_processing_tpu_torch.ops.segmentation import (
+        gpf_segment_sorted)
+    from lidar_processing_tpu_torch.runtime.pipeline import (COUNTERS,
+                                                             STAGES)
+    from lidar_processing_tpu_torch.types import SEG_OBSTACLE
+    slack_s = (error_ns + STAMP_SLACK_NS) * 1e-9
+    for _, m in results:
+        span = {n: (a, b) for n, a, b in m.spans}
+        if sorted(m.device_ms) != sorted(STAGES) or min(
+                m.device_ms.values()) <= 0.0:
+            raise AssertionError(f"frame {m.frame_id}: device stages "
+                                 f"{m.device_ms}")
+        first, last = span[STAGES[0]][0], span[STAGES[-1]][1]
+        if not (span["stream.dispatch"][0] - slack_s <= first
+                and last <= span["stream.device_wait"][1] + slack_s):
+            raise AssertionError(
+                f"frame {m.frame_id}: stamps mapped to [{first:.6f}, "
+                f"{last:.6f}] s outside the dispatch's start "
+                f"{span['stream.dispatch'][0]:.6f} s and the wait's end "
+                f"{span['stream.device_wait'][1]:.6f} s (slack "
+                f"{slack_s * 1e6:.1f} us)")
+    cfg = stream.config
+    stream.calibrate()
+    a = time.perf_counter_ns()
+    _, row = stream._step(0)
+    row = row.tolist()
+    b = time.perf_counter_ns()
+    at = [t - stream.clock_offset_ns for t in row[:len(STAGES) + 1]]
+    slack = stream.clock_error_ns + STAMP_SLACK_NS
+    if not (a - slack <= at[0] and all(y > x for x, y in zip(at, at[1:]))
+            and at[-1] <= b + slack):
+        raise AssertionError(f"frame 0's stamps {row[:len(STAGES) + 1]} "
+                             f"(host {at} ns) do not rise inside the "
+                             f"replay's bracket [{a}, {b}] ns")
+    ss = gpf_segment_sorted(stream.xyz[0], stream.mask[0], cfg.segmentation)
+    _, dbg = tsx.cluster_debug(ss.xyz, ss.valid & (
+        ss.labels == SEG_OBSTACLE), cfg.clustering, cfg.pipeline)
+    counts = dict(zip(COUNTERS, row[len(STAGES) + 1:]))
+    debug = {"tier_pairs": int(dbg["tiers1"][:-1].sum()
+                               + dbg["tiers2"][:-1].sum()),
+             "uf_edges": int(dbg["n_edges"])}
+    ran = next(m.counters for _, m in results if m.frame_id == 0)
+    if counts != ran or any(counts[k] != v for k, v in debug.items()):
+        raise AssertionError(f"frame 0's counters {counts}, in the run "
+                             f"{ran}, cluster_debug's {debug}")
+    torch.cuda.synchronize()
+    med = {n: float(np.median([m.device_ms[n] for _, m in results]))
+           for n in STAGES}
+    log(f"stamps: {len(results)} frames, each stage > 0 and both ends "
+        f"inside the host's bracket within {slack_s * 1e6:.1f} us; device "
+        f"stages p50 {med} ms; frame 0's row {row} (stamps in columns "
+        f"0-{len(STAGES)}, counters {counts} = cluster_debug's {debug})")
 
 
 def check_cuda_vs_cpu(stream) -> int:
@@ -1748,7 +1840,8 @@ def check_host_stage(tmp: Path, stream, route, native_s, smi) -> None:
     for what, step, n in (("segmentation", stages[0], 0),
                           ("clustering", stages[1], 1)):
         check_kernel_nodes(step, {"tier_min_d2": 2 * n, "union_find": n,
-                                  "min_d2": 0}, f"the {what} stage's graph")
+                                  "min_d2": 0, "stamp": 0},
+                           f"the {what} stage's graph")
     eager = ReplayStream(cfg, data_dir=str(tmp), device=stream.device,
                          eager=True)
     _, _, eager_timed = replay(eager, 2, stage_timing=True)
@@ -1987,9 +2080,10 @@ def check_graph_steps(stream) -> None:
     x, m = stream.xyz[:N_FRAMES], stream.mask[:N_FRAMES]
     for backend, cfg, batches, want in (
             ("stixel", stream.config, (1,) + BATCHES,
-             {"tier_min_d2": 2, "union_find": 1, "min_d2": 0}),
+             {"tier_min_d2": 2, "union_find": 1, "min_d2": 0, "stamp": 0}),
             ("cellgraph", cellgraph_config(), (1, N_FRAMES),
-             {"tier_min_d2": 0, "union_find": 0, "min_d2": 0})):
+             {"tier_min_d2": 0, "union_find": 0, "min_d2": 0,
+              "stamp": 0})):
         for b in batches:
             step = CompiledStep(step_and_payload, cfg, b, stream.device)
             check_kernel_nodes(step, want, f"{backend} B={b}")
@@ -2475,7 +2569,8 @@ def drive_spatial(stream, obst):
     for name, g in graphs.items():
         clusters = not name.startswith("gpf_spatial")
         check_kernel_nodes(g, {"tier_min_d2": 2 * clusters,
-                               "union_find": int(clusters), "min_d2": 0},
+                               "union_find": int(clusters), "min_d2": 0,
+                               "stamp": 0},
                            f"the {name} graph")
     launches = {k: sum(g.kernel_nodes(KERNEL_OF[k]) * g.replays
                        for g in graphs.values()) for k in wrapped}

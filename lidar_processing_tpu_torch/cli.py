@@ -40,6 +40,7 @@ def _cmd_run(args) -> int:
     import numpy as np
 
     from .io.export import export_frame
+    from .runtime.spans import total_ms
     from .runtime.stream import ReplayStream
 
     stream = ReplayStream(DEFAULT_CONFIG, data_dir=args.data_dir,
@@ -50,6 +51,7 @@ def _cmd_run(args) -> int:
                   if args.export_frames else set())
 
     disp, host, missed, overflow, dropped = [], [], 0, 0, 0
+    spans, stages, counters = {}, {}, {}    # name -> a value a frame
     for out, m in stream.run(n, realtime=args.realtime,
                              stage_timing=args.stage_timing):
         stage = ""
@@ -67,6 +69,11 @@ def _cmd_run(args) -> int:
         missed += m.deadline_missed
         overflow += m.overflow
         dropped += m.frames_dropped
+        for name in dict.fromkeys(n for n, _, _ in m.spans):
+            spans.setdefault(name, []).append(total_ms(m.spans, name))
+        for into, values in ((stages, m.device_ms), (counters, m.counters)):
+            for name, v in values.items():
+                into.setdefault(name, []).append(v)
         if m.frame_id in export_ids and args.export_dir:
             fid = m.frame_id
             xyz = stream.xyz[fid, :int(stream.counts[fid])].cpu().numpy()
@@ -82,6 +89,12 @@ def _cmd_run(args) -> int:
           f"host p50={np.percentile(host, 50):.2f}ms "
           f"deadline_missed={missed} overflow_frames={overflow} "
           f"frames_dropped={dropped}")
+    for what, values, unit in (("spans", spans, "ms"),
+                               ("device stages", stages, "ms"),
+                               ("counters", counters, "")):
+        print(f"{what} p50: " + " ".join(
+            f"{name}={np.median(v):.{2 if unit else 0}f}{unit}"
+            for name, v in values.items()))
     return 0
 
 

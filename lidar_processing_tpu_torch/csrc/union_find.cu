@@ -128,3 +128,30 @@ extern "C" int union_find_launch(const int* eu, const int* ev,
                                                            out, ec, s_cap);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Device clock stamps (kernels/stamp.py): one thread reads %globaltimer
+// (the card's nanosecond clock) and stores it in out[r * stride] for each
+// of `rows` rows. Replaces no TPU kernel: the compiled step is one CUDA
+// graph, so the host sees only its ends, and a stamp node between two of
+// its stages timestamps that boundary on every replay. It lives in this
+// file so that the one library kernels/_build.py links gains a symbol and
+// no build of its own. Bound by its launch: 8 bytes a row.
+namespace {
+
+__global__ void globaltimer_stamp_kernel(long long* out, int stride,
+                                         int rows) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  for (int r = 0; r < rows; ++r) {
+    out[static_cast<long long>(r) * stride] = static_cast<long long>(t);
+  }
+}
+
+}  // namespace
+
+extern "C" int globaltimer_stamp_launch(long long* out, int stride, int rows,
+                                        void* stream) {
+  globaltimer_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, stride, rows);
+  return static_cast<int>(cudaGetLastError());
+}

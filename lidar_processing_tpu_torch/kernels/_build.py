@@ -48,6 +48,7 @@ _ENTRIES = (
     ("gather_sum_launch", [_P, _P, _I, _I, _P, _I, _P]),
     ("slice_sum_launch", [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
     ("tile_scale_launch", [_P, _P, _I, _P]),
+    ("globaltimer_stamp_launch", [_P, _I, _I, _P]),
 )
 # each entry point's ctypes function, bound once by library()
 _BOUND: dict = {}

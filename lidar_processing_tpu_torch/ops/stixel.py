@@ -234,7 +234,7 @@ class _PairTest(NamedTuple):
 
 def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
                   tiers=_TIERS_SNP, chunk_pairs: int = _CHUNK_PAIRS_SNP,
-                  debug: bool = False):
+                  debug: bool = False, counts=None):
     """Run tiered block tests; scatter edge verdicts into (B, n_results)
     bool.
 
@@ -246,7 +246,9 @@ def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
     frame's per-tier pair counts + the chunked-pair count ("tiers"), and
     checksums of the tiers' window starts ("tier_idx") and windows
     ("windows"), as the JAX package's dict; without it dbg is None and
-    none of that is launched.
+    none of that is launched. `counts`, an int64 (B, 2+) view or None,
+    gains each frame's tested pairs (column 0: the tier tables' pair
+    counts) and the tested pairs that link (column 1).
     """
     dev = sp_xyz.device
     frames = sp_xyz.shape[0]
@@ -321,6 +323,9 @@ def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
     lo = torch.minimum(torch.clamp(starts, min=0), lay.lo_max)
     verdict = (lay.k < n_in_tier[:, lay.tier]) & (mind2 <= r2)
     src = lo[:, lay.tier] + lay.k
+    if counts is not None:
+        counts[:, 0].add_(n_in_tier.sum(-1))
+        counts[:, 1].add_(verdict.sum(-1))
     # ONE verdict scatter for all tiers
     out = set_drop(torch.zeros((frames, n_results), dtype=torch.bool,
                                device=dev),
@@ -554,26 +559,28 @@ def _sort_points_full(xyz, obstacle, point_valid, orig, seg_labels,
 
 
 def cluster_fused(xyz_s, obstacle_s, point_valid_s, orig_s, seg_labels_s,
-                  cfg: ClusteringConfig, pcfg: PipelineConfig
-                  ) -> FusedClusterOut:
+                  cfg: ClusteringConfig, pcfg: PipelineConfig,
+                  counts=None) -> FusedClusterOut:
     """Fused clustering over pre-sorted segmented clouds.
 
     Inputs live in gpf_segment_sorted's (partition, z) space, (B, N[, 3])
     or one frame without the B; orig_s carries the original index. Both
     stages' labels return to original order with ONE sort on the packed
     orig*4+seg key, and the cell-key-sorted obstacle arrays feed the hull
-    stage directly.
+    stage directly. `counts`: as ``_cluster_core``'s.
     """
     if xyz_s.dim() == 2:
         return frame_of(cluster_fused(
             xyz_s[None], obstacle_s[None], point_valid_s[None], orig_s[None],
-            seg_labels_s[None], cfg, pcfg), 0)
+            seg_labels_s[None], cfg, pcfg,
+            None if counts is None else counts[None]), 0)
     frames, n = xyz_s.shape[:2]
     no = pcfg.max_obstacle_points
     h = math.sqrt(cfg.distance_squared / 3.0)
     sp, key_full, orig_full, _ = _sort_points_full(
         xyz_s, obstacle_s, point_valid_s, orig_s, seg_labels_s, pcfg, h)
-    pt_label, num_clusters, overflow, _ = _cluster_core(sp, cfg, pcfg)
+    pt_label, num_clusters, overflow, _ = _cluster_core(sp, cfg, pcfg,
+                                                        counts=counts)
 
     pt_valid = sp.key != _IMAX
     cl_plus2 = torch.cat([torch.where(pt_valid, pt_label + 2, 0),
@@ -617,14 +624,16 @@ def _frame_scalars(table):
 
 
 def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
-                  pcfg: PipelineConfig, debug: bool = False):
+                  pcfg: PipelineConfig, debug: bool = False, counts=None):
     """Shared clustering core over sorted obstacle buffers.
 
     Returns (pt_label (B,NO) labels per sorted row, num_clusters (B,1),
     overflow (B,1), debug dict or None). The dict and the reductions only
     it needs are built when `debug` asks: in eager PyTorch each would be a
     launch on the main path (XLA dead-code-eliminated them in the JAX
-    package).
+    package). `counts`, an int64 (B, 3) view or None, gains the pairs both
+    tier tables test, those that link, and the live edges union_find
+    takes: a few reductions, launched only when it is given.
     """
     r2 = cfg.distance_squared
     m = pcfg.max_cells
@@ -659,7 +668,7 @@ def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
         active=torch.cat(intra_tests, 1))
     intra_verdict, ovf_t, dbg_t1 = _tiered_exact(
         sp.xyz, pt, r2, 2 * m, tiers=_TIERS_INTRA,
-        chunk_pairs=_CHUNK_PAIRS_INTRA, debug=debug)
+        chunk_pairs=_CHUNK_PAIRS_INTRA, debug=debug, counts=counts)
     overflow = overflow + ovf_t
     link1 = intra_link[1] | intra_verdict[:, :m]
     link2 = intra_link[2] | intra_verdict[:, m:2 * m]
@@ -791,8 +800,8 @@ def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
         u_start=ru[..., 12].to(_I32), u_count=ru[..., 13].to(_I32),
         v_start=rv[..., 12].to(_I32), v_count=rv[..., 13].to(_I32),
         slot=_iota(snp, dev).expand(frames, -1), active=ambiguous)
-    snp_verdict, ovf_t2, dbg_t2 = _tiered_exact(sp.xyz, pt2, r2, snp,
-                                                tiers=_TIERS_SNP, debug=debug)
+    snp_verdict, ovf_t2, dbg_t2 = _tiered_exact(
+        sp.xyz, pt2, r2, snp, tiers=_TIERS_SNP, debug=debug, counts=counts)
     overflow = overflow + ovf_t2
     snp_edge = pair_certain | snp_verdict
 
@@ -820,6 +829,8 @@ def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
     # ---- connected components on the supernode graphs, one launch -------
     sn_valid_mask = _iota(s_cap, dev) < sn.n_sn
     labels = cc_labels(e_u, e_v, n_edges[:, 0], s_cap)
+    if counts is not None:
+        counts[:, 2] = n_edges[:, 0]
 
     # ---- stats, size filter, canonical numbering ------------------------
     tgt = torch.where(sn_valid_mask, labels, s_cap)

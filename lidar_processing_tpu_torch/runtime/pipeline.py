@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..config import EngineConfig
+from ..kernels.stamp import stamp
 from ..ops import clustering as _cellgraph
 from ..ops import stixel as _stixel
 from ..ops import hull_native
@@ -47,6 +48,7 @@ from ..ops.simplify import simplify_ring
 from ..types import (CLUSTER_UNDEFINED, ClusteringResult, PolygonBatch,
                      SegmentationResult, SEG_OBSTACLE, frame_of,
                      map_leaves)
+from .spans import begin
 
 _I32 = torch.int32
 
@@ -57,6 +59,14 @@ SMALL_P = 32          # padded points per small-cluster slot (device hulls)
 SMALL_C = 1024        # small-cluster slots
 LARGE_C = 512         # large-cluster (host concave) slots
 NUM_SLOTS = SMALL_C + LARGE_C   # cluster-id table size
+
+# The stamped step's stats row (int64, one a frame): a device clock stamp
+# (ns) at each boundary of the four STAGES (stamps 0-4: before
+# segmentation, clustering, label runs + hulls, the payload, and after
+# it), then the COUNTERS.
+STAGES = ("step.segment", "step.cluster", "step.outline", "step.pack")
+COUNTERS = ("tier_pairs", "tier_links", "uf_edges")
+STATS_WORDS = len(STAGES) + 1 + len(COUNTERS)
 
 
 class FrameResult(NamedTuple):
@@ -90,8 +100,15 @@ class FrameOutputs(NamedTuple):
     intensity: Optional[np.ndarray] = None
 
 
+def _stamp(stats: Optional[torch.Tensor], slot: int) -> None:
+    if stats is not None:
+        stamp(stats, slot)
+
+
 def device_frame_step_batched(xyzs: torch.Tensor, masks: torch.Tensor,
-                              config: EngineConfig) -> FrameResult:
+                              config: EngineConfig,
+                              stats: Optional[torch.Tensor] = None
+                              ) -> FrameResult:
     """Full device pipeline for B padded frames.
 
     xyzs (B, N, 3) f32, masks (B, N) bool. On the stixel backend the
@@ -102,23 +119,31 @@ def device_frame_step_batched(xyzs: torch.Tensor, masks: torch.Tensor,
     clouds. Any other backend (``cellgraph``) runs stage by stage, as in
     the JAX package: segmentation, ``ops/clustering.py`` on the obstacle
     mask, ``label_runs`` over the full clouds. Every leaf of the result
-    has a leading B.
+    has a leading B. `stats`, a (B, STATS_WORDS) int64 tensor or None,
+    takes stamps 0-2 and, on the stixel backend, the COUNTERS.
     """
     if config.pipeline.clustering_backend == "stixel":
+        _stamp(stats, 0)
         ss = gpf_segment_sorted(xyzs, masks, config.segmentation)
         obstacle_s = ss.valid & (ss.labels == SEG_OBSTACLE)
+        _stamp(stats, 1)
         fused = _stixel.cluster_fused(
             ss.xyz, obstacle_s, ss.valid, ss.orig, ss.labels,
-            config.clustering, config.pipeline)
+            config.clustering, config.pipeline,
+            None if stats is None else stats[:, len(STAGES) + 1:])
         seg = SegmentationResult(fused.seg_labels, ss.planes, ss.plane_valid)
+        _stamp(stats, 2)
         runs = label_runs_presorted(
             fused.sorted_xyz, fused.sorted_label, fused.sorted_orig,
             NUM_SLOTS, orig_bound=xyzs.shape[1])
         return _hull_stage(seg, fused.result, runs, config)
+    _stamp(stats, 0)
     seg = gpf_segment(xyzs, masks, config.segmentation)
     obstacle = masks & (seg.labels == SEG_OBSTACLE)
+    _stamp(stats, 1)
     cl = _cellgraph.cluster(xyzs, obstacle, config.clustering,
                             config.pipeline)
+    _stamp(stats, 2)
     runs = label_runs(xyzs, cl.labels, NUM_SLOTS)
     return _hull_stage(seg, cl, runs, config)
 
@@ -254,9 +279,14 @@ def host_outputs(fr: FrameResult, config: EngineConfig,
 def _assemble_outputs(seg_labels, cl_labels, small_ids, n_small, sh_v, sh_n,
                       large_ids, n_large, large_slices, zext,
                       num_clusters, overflow, config: EngineConfig, n: int,
-                      intensity=None, with_outlines=True) -> FrameOutputs:
+                      intensity=None, with_outlines=True,
+                      spans=None) -> FrameOutputs:
     """Build FrameOutputs from host arrays (shared by the exact and
-    packed-payload readout paths). zext(c) -> (z_min, z_max) per slot."""
+    packed-payload readout paths). zext(c) -> (z_min, z_max) per slot.
+    `spans` (runtime/spans.py, or None) runs on through host.assemble
+    (twice with outlines: the small hulls, then z extents and
+    FrameOutputs), host.chi_hulls and host.caps, the last left open."""
+    begin(spans, "host.assemble")
     inten = np.asarray(intensity)[:n] if intensity is not None else None
     if not with_outlines:
         return FrameOutputs(
@@ -270,16 +300,19 @@ def _assemble_outputs(seg_labels, cl_labels, small_ids, n_small, sh_v, sh_n,
         if k > 0:
             outlines.append(sh_v[c, :k].astype(np.float32))
             outline_ids.append(int(small_ids[c]))
-
-    outlines.extend(_outlines_from_slices(large_slices, config))
     outline_ids.extend(int(large_ids[k]) for k in range(n_large))
+
+    begin(spans, "host.chi_hulls")
+    outlines.extend(_outlines_from_slices(large_slices, config))
 
     # vertex-count cap (ref: src/polygonization.hpp:56 max_polygon_points)
     pcfg = config.polygonization
     if pcfg.simplify_convex_by_maximum_points:
+        begin(spans, "host.caps")
         outlines = [simplify_ring(o, pcfg.max_points_in_polygon)
                     for o in outlines]
 
+    begin(spans, "host.assemble")
     return FrameOutputs(
         seg_labels=seg_labels[:n], cluster_labels=cl_labels[:n],
         num_clusters=num_clusters, outlines=outlines,
@@ -420,6 +453,23 @@ def device_frame_step_packed_batched(xyzs: torch.Tensor, masks: torch.Tensor,
                              config)
 
 
+def device_frame_step_stamped_batched(xyzs: torch.Tensor, masks: torch.Tensor,
+                                      config: EngineConfig):
+    """device_frame_step_packed_batched with each frame's stats row:
+    (its (B, words) int32 payloads, word for word, and (B, STATS_WORDS)
+    int64 stats). Five device clock stamps (kernels/stamp.py) split the
+    step into STAGES; the stixel backend adds the COUNTERS. The streaming
+    runtime's step; callers that need no stats call the unstamped step,
+    which launches none of this."""
+    stats = torch.zeros((xyzs.shape[0], STATS_WORDS), dtype=torch.int64,
+                        device=xyzs.device)
+    fr = device_frame_step_batched(xyzs, masks, config, stats)
+    _stamp(stats, 3)
+    payload = pack_host_payload(fr, config)
+    _stamp(stats, 4)
+    return payload, stats
+
+
 def device_frame_step_packed(xyz: torch.Tensor, mask: torch.Tensor,
                              config: EngineConfig) -> torch.Tensor:
     """device_frame_step_packed_batched for one padded frame: (words,)."""
@@ -429,10 +479,14 @@ def device_frame_step_packed(xyz: torch.Tensor, mask: torch.Tensor,
 
 def host_outputs_packed(payload, config: EngineConfig, n: int,
                         intensity: Optional[np.ndarray] = None,
-                        with_outlines: bool = True) -> FrameOutputs:
+                        with_outlines: bool = True,
+                        spans=None) -> FrameOutputs:
     """host_outputs from one frame's payload, (words,): a row of
     pack_host_payload's buffer (a tensor on any device, or a host
-    array)."""
+    array). `spans` (runtime/spans.py, or None) runs on through the host
+    stage: host.decode (unpacking, dequantisation), then
+    ``_assemble_outputs``' spans, the last left open."""
+    begin(spans, "host.decode")
     buf = (_np(payload) if isinstance(payload, torch.Tensor)
            else np.asarray(payload))
     N, NO, S, SC, LC, p_out, LP = _payload_dims(config)
@@ -492,4 +546,4 @@ def host_outputs_packed(payload, config: EngineConfig, n: int,
         large_ids=large_ids, n_large=n_large, large_slices=slices,
         zext=zext, num_clusters=int(buf[2]), overflow=int(buf[3]),
         config=config, n=n, intensity=intensity,
-        with_outlines=with_outlines)
+        with_outlines=with_outlines, spans=spans)

@@ -23,24 +23,45 @@ sees dropped frames, not growing lag. On a CPU device the payload is
 cloned on the host and no event is used.
 Per-stage metrics mirror the reference's timing logs
 (ref: src/processor.cpp:167-171,204-207,218-219).
+
+Each frame's ``FrameMetrics`` carries its life from publication to
+outputs, always recorded: host spans (runtime/spans.py, exported to
+torch.profiler while it records) and the step's stats row, copied beside
+the payload before the same event. The step is
+``device_frame_step_stamped_batched``: five device clock stamps inside it
+give each frame's device time a stage (``device_ms``), and the stixel
+backend's work counters ride along (``counters``). The stamps are mapped
+onto ``time.perf_counter`` by an offset that ``warmup()`` calibrates, a
+stamp bracketed by two host reads, the tightest of CALIBRATION_TRIES,
+and ``run()`` calibrates again every RECALIBRATE_S seconds, so that the
+spans built from them (``stream.queue``, the ``step.*`` stages,
+``stream.hold``) lie on the host's clock.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import EngineConfig
 from ..io.dataset import list_frames, preload_padded
+from ..kernels.stamp import stamp
 from ..ops import stixel as _stixel
 from ..ops.segmentation import gpf_segment
 from ..types import SEG_OBSTACLE
 from . import compiled
-from .pipeline import device_frame_step_packed_batched, host_outputs_packed
+from .pipeline import (COUNTERS, STAGES, device_frame_step_stamped_batched,
+                       host_outputs_packed)
+from .spans import Span, Spans
+
+CALIBRATION_TRIES = 20   # bracketed stamps a calibration keeps the best of
+# run()'s seconds between two calibrations: the card's clock drifts from
+# the host's by ~4.7 µs a second (H100 80GB HBM3), ~23 µs in that time
+RECALIBRATE_S = 5.0
 
 
 def segment_stage(xyzs: torch.Tensor, masks: torch.Tensor,
@@ -64,14 +85,19 @@ class FrameMetrics:
     """Per-frame observability record (ref: processor.cpp logging)."""
 
     frame_id: int
-    t_dispatch_ms: float      # device step dispatch + completion
-    t_host_ms: float          # host polygonization + readout
+    # dispatch to consumption: the step's launch, its queue and device
+    # time, and the hold in the depth-`queue_depth` window (``spans``
+    # splits it)
+    t_dispatch_ms: float
+    t_host_ms: float          # host stage: payload decode, outlines, caps
     ground_points: int
     obstacle_points: int
     num_clusters: int
     num_outlines: int
     overflow: int
-    deadline_missed: bool     # frame exceeded the replay period
+    # publication to outputs (t_published to the end of the host stage)
+    # took longer than the replay period
+    deadline_missed: bool
     # frames dropped immediately before this one because the in-flight
     # window was full when they were published (realtime mode only —
     # DDS QoS keep-last-`queue_depth`, ref: src/processor.cpp:69-73)
@@ -89,6 +115,23 @@ class FrameMetrics:
     t_seg_ms: Optional[float] = None
     t_cluster_ms: Optional[float] = None
     t_hull_ms: Optional[float] = None
+    # publication sequence number (frames published cyclically from 0)
+    # and its publication time (time.perf_counter s): on the schedule in
+    # realtime mode, the dispatch start otherwise
+    seq: int = 0
+    t_published: float = 0.0
+    # (name, start, end) on time.perf_counter s, in order from
+    # publication: [stream.publication_wait,] stream.lag, stream.dispatch,
+    # stream.queue (from the dispatch's start to the first device stamp),
+    # the step.* stages (device stamps mapped to the host clock),
+    # stream.hold, stream.device_wait, host.decode, host.assemble,
+    # host.chi_hulls, host.caps, host.assemble, host.counts (decode,
+    # chi_hulls, caps and assemble make t_host_ms)
+    spans: List[Span] = dataclasses.field(default_factory=list)
+    # the step's stages, device ms from its stamps
+    device_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # the step's work counts (stixel backend): pipeline.COUNTERS
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 class ReplayStream:
@@ -126,18 +169,27 @@ class ReplayStream:
         self.mask = torch.from_numpy(mask).to(self.device)
         self.counts = counts
         self.num_frames = xyz.shape[0]
-        self._pinned: List[torch.Tensor] = []
+        # pinned (payload, stats) ring slots
+        self._pinned: List[Tuple[torch.Tensor, torch.Tensor]] = []
         self.eager = eager
         self._stepper = None      # the B = 1 step, built by the first step
         self._stages = None       # the stage-timed replay's two stages
+        # the stamps' clock: host ns = stamp - offset, within the error
+        self.clock_offset_ns = 0
+        self.clock_error_ns: Optional[int] = None   # None: not calibrated
+        self._calibrated_at = 0.0
+        self._clock = None        # (device stamp row, host copy, stream)
 
-    def _step(self, fid: int) -> torch.Tensor:
+    def _step(self, fid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Frame fid's (payload, stats row), the compiled step's static
+        outputs on the card: the next step overwrites them."""
         if self._stepper is None:
             self._stepper = compiled.batched_step(
-                device_frame_step_packed_batched, self.config, 1,
+                device_frame_step_stamped_batched, self.config, 1,
                 self.device, self.eager)
-        return self._stepper(self.xyz[fid:fid + 1],
-                             self.mask[fid:fid + 1])[0]
+        payload, stats = self._stepper(self.xyz[fid:fid + 1],
+                                       self.mask[fid:fid + 1])
+        return payload[0], stats[0]
 
     @property
     def graph(self) -> Optional[compiled.CompiledStep]:
@@ -169,9 +221,45 @@ class ReplayStream:
 
     def warmup(self) -> None:
         """One step end to end: builds the kernels, warms the caches and,
-        the first time on the compiled route, captures the step."""
+        the first time on the compiled route, captures the step; then
+        calibrates the stamps' clock."""
         self._step(0)
         self.sync()
+        self.calibrate()
+
+    def calibrate(self) -> None:
+        """Map the device's clock stamps onto time.perf_counter: of
+        CALIBRATION_TRIES stamps, each bracketed by two host reads (the
+        launch, a copy to pinned memory and the wait on a stream of its
+        own, so that queued steps are not waited for), keep the tightest
+        bracket: ``clock_offset_ns`` is its stamp less the bracket's
+        midpoint, ``clock_error_ns`` half its width."""
+        if self._clock is None:
+            on_card = self.device.type == "cuda"
+            row = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
+            self._clock = (row, torch.zeros((1, 1), dtype=torch.int64,
+                                            pin_memory=on_card),
+                           torch.cuda.Stream(self.device) if on_card
+                           else None)
+        row, host, side = self._clock
+        best = None
+        for _ in range(CALIBRATION_TRIES):
+            a = time.perf_counter_ns()
+            if side is None:
+                stamp(row, 0)
+                t = int(row[0, 0])
+            else:
+                with torch.cuda.stream(side):
+                    stamp(row, 0)
+                    host.copy_(row, non_blocking=True)
+                side.synchronize()
+                t = int(host[0, 0])
+            b = time.perf_counter_ns()
+            if best is None or b - a < best[0]:
+                best = (b - a, t - (a + b) // 2)
+        self.clock_error_ns = best[0] // 2
+        self.clock_offset_ns = best[1]
+        self._calibrated_at = time.perf_counter()
 
     def _stage_times(self, fid: int):
         """Standalone segmentation, then clustering, each waited for, as
@@ -191,19 +279,23 @@ class ReplayStream:
         self.sync()
         return t1 - t0, time.perf_counter() - t1
 
-    def _to_host(self, payload: torch.Tensor, slot: int):
-        """Start the payload's copy to the host; (host tensor, event)."""
+    def _to_host(self, payload: torch.Tensor, stats: torch.Tensor,
+                 slot: int):
+        """Start the copies of the payload and the stats row to the host;
+        (host payload, host stats, event)."""
         if payload.device.type != "cuda":
             # a compiled step's output is overwritten by the next step
-            return payload.clone(), None
+            return payload.clone(), stats.clone(), None
         while len(self._pinned) <= slot:
-            self._pinned.append(torch.empty(payload.shape, dtype=payload.dtype,
-                                            pin_memory=True))
-        host = self._pinned[slot]
+            self._pinned.append(tuple(
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in (payload, stats)))
+        host, host_stats = self._pinned[slot]
         host.copy_(payload, non_blocking=True)
+        host_stats.copy_(stats, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(payload.device))
-        return host, done
+        return host, host_stats, done
 
     def run(self, num_frames: int, realtime: bool = False,
             with_outlines: bool = True, stage_timing: bool = False):
@@ -212,7 +304,8 @@ class ReplayStream:
         realtime=True paces dispatch at replay_rate_hz and flags deadline
         misses (the reference's 100 ms budget, ref: README.md:4).
         stage_timing=True times segmentation/clustering/hulls separately
-        (synchronously — lower throughput, richer metrics).
+        (synchronously — lower throughput, richer metrics). No span stays
+        open across a yield.
         """
         period = 1.0 / self.config.pipeline.replay_rate_hz
         self.warmup()
@@ -221,14 +314,16 @@ class ReplayStream:
             self._stages = tuple(compiled.batched_step(
                 fn, self.config, 1, self.device, self.eager)
                 for fn in (segment_stage, cluster_stage))
-        # (fid, dispatch time, host buf, event, stage times, drops)
-        inflight: List = []
+        inflight: List[_InFlight] = []
         depth = self.config.pipeline.queue_depth
         produced = 0
         seq = 0               # publication sequence number (cyclic fids)
         t_start = time.perf_counter()
 
         while produced < num_frames:
+            if time.perf_counter() - self._calibrated_at > RECALIBRATE_S:
+                self.calibrate()
+            spans = Spans()
             dropped_before = 0
             if realtime:
                 # publication clock: seq k publishes at t_start + k*period
@@ -239,55 +334,103 @@ class ReplayStream:
                 now = time.perf_counter()
                 published = int((now - t_start) / period) + 1
                 if published <= seq:
+                    spans.begin("stream.publication_wait")
                     time.sleep(t_start + seq * period - now)
                     published = seq + 1
                 newest_kept = max(seq, published - depth)
                 dropped_before = newest_kept - seq
                 seq = newest_kept
             fid = seq % self.num_frames
-            seq += 1
-            t0 = time.perf_counter()
+            t0 = spans.begin("stream.dispatch")
             stages = self._stage_times(fid) if stage_timing else None
             # a ring of depth + 1 pinned buffers: the slot reused here
             # belonged to a frame that has already been consumed
-            host, done = self._to_host(self._step(fid), produced % (depth + 1))
+            host, host_stats, done = self._to_host(*self._step(fid),
+                                                   produced % (depth + 1))
+            t_dispatched = spans.end()
+            t_pub = t_start + seq * period if realtime else t0
+            spans.record.insert(-1, ("stream.lag", t_pub, t0))
             produced += 1
-            inflight.append((fid, t0, host, done, stages, dropped_before))
+            inflight.append(_InFlight(fid, seq, t_pub, t0, t_dispatched,
+                                      spans.record, host, host_stats, done,
+                                      stages, dropped_before))
+            seq += 1
             # bounded window: consume the oldest once the queue is full
             while len(inflight) > depth:
                 yield self._consume(inflight.pop(0), period, with_outlines)
         while inflight:
             yield self._consume(inflight.pop(0), period, with_outlines)
 
-    def _consume(self, item, period: float, with_outlines: bool):
-        fid, t0, host, done, stages, dropped_before = item
-        if done is not None:
-            done.synchronize()
-        t1 = time.perf_counter()
-        n = int(self.counts[fid])
-        out = host_outputs_packed(host.numpy().copy(), self.config, n,
-                                  intensity=self.intensity[fid, :n],
-                                  with_outlines=with_outlines)
-        t2 = time.perf_counter()
+    def _consume(self, f: "_InFlight", period: float, with_outlines: bool):
+        consumed = Spans()
+        t_wait = consumed.begin("stream.device_wait")
+        if f.done is not None:
+            f.done.synchronize()
+        t1 = consumed.begin("host.decode")
+        n = int(self.counts[f.fid])
+        out = host_outputs_packed(f.host.numpy().copy(), self.config, n,
+                                  intensity=self.intensity[f.fid, :n],
+                                  with_outlines=with_outlines,
+                                  spans=consumed)
+        t2 = consumed.begin("host.counts")
         seg = out.seg_labels
+        ground, obstacle = int(np.sum(seg == 1)), int(np.sum(seg == 2))
+        t_out = consumed.end()
+        t0 = f.t_dispatch
         t_seg = t_cl = t_hull = None
-        if stages is not None:
-            t_seg, t_cl = stages[0] * 1e3, stages[1] * 1e3
+        if f.stages is not None:
+            t_seg, t_cl = f.stages[0] * 1e3, f.stages[1] * 1e3
             # hull stage = the fused step's completion less the timed
             # prefix stages (the fused step recomputes seg + cluster; its
             # marginal hull cost is the rest of the dispatch window)
             t_hull = max(0.0, (t1 - t0) * 1e3 - t_seg - t_cl)
+        stats = f.host_stats.tolist()
+        stamps = stats[:len(STAGES) + 1]
+        at = [(s - self.clock_offset_ns) * 1e-9 for s in stamps]
+        # the device's track starts with the dispatch: the queue runs to
+        # the first stamp (the device's start latency; the step begins
+        # while the launch call is still returning), the stages follow,
+        # and the hold runs from the later of the last stamp and the
+        # dispatch's return to the wait, empty where the wait began first
+        last = max(f.t_dispatched, at[-1])
+        device = ([("stream.queue", f.t_dispatch, max(f.t_dispatch, at[0]))]
+                  + [(name, at[i], at[i + 1])
+                     for i, name in enumerate(STAGES)]
+                  + [("stream.hold", last, max(last, t_wait))])
         metrics = FrameMetrics(
-            frame_id=fid,
+            frame_id=f.fid,
             t_dispatch_ms=(t1 - t0) * 1e3,
             t_host_ms=(t2 - t1) * 1e3,
-            ground_points=int(np.sum(seg == 1)),
-            obstacle_points=int(np.sum(seg == 2)),
+            ground_points=ground,
+            obstacle_points=obstacle,
             num_clusters=out.num_clusters,
             num_outlines=len(out.outlines),
             overflow=out.overflow,
-            deadline_missed=(t1 - t0) > period,
-            frames_dropped=dropped_before,
+            deadline_missed=t_out - f.t_published > period,
+            frames_dropped=f.dropped_before,
             t_seg_ms=t_seg, t_cluster_ms=t_cl, t_hull_ms=t_hull,
+            seq=f.seq, t_published=f.t_published,
+            spans=f.spans + device + consumed.record,
+            device_ms={name: (stamps[i + 1] - stamps[i]) * 1e-6
+                       for i, name in enumerate(STAGES)},
+            counters=(dict(zip(COUNTERS, stats[len(STAGES) + 1:]))
+                      if self.config.pipeline.clustering_backend == "stixel"
+                      else {}),
         )
         return out, metrics
+
+
+class _InFlight(NamedTuple):
+    """A dispatched frame waiting in the window."""
+
+    fid: int
+    seq: int
+    t_published: float
+    t_dispatch: float         # its stream.dispatch span's start and end
+    t_dispatched: float
+    spans: List[Span]         # [stream.publication_wait,] lag, dispatch
+    host: torch.Tensor        # the payload's host copy (landing)
+    host_stats: torch.Tensor  # the stats row's host copy (landing)
+    done: Optional[torch.cuda.Event]   # set when both have landed
+    stages: Optional[tuple]   # stage-timed replay: (seg s, cluster s)
+    dropped_before: int

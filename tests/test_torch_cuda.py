@@ -902,3 +902,86 @@ def test_stage_graphs_equal_eager_stages(cuda, tmp_path):
         assert None not in (gm.t_seg_ms, gm.t_cluster_ms, gm.t_hull_ms)
     graph.release()
     assert graph.stage_graphs == () and graph.graph is None
+
+
+def _small_frames(path):
+    from lidar_processing_tpu_torch.io.pcd import write_pcd_xyzi
+    for seed in (0, 1):
+        write_pcd_xyzi(path / f"{seed:06d}.pcd", *street_scene(seed, "small"))
+    return str(path)
+
+
+def test_stamps_split_an_event_timed_replay(cuda):
+    """The stamped step's graph holds five globaltimer_stamp_kernel nodes;
+    on each of 20 replays every stage takes some time, and the stages
+    sum to within 5% of CUDA events around the replay (median); the
+    payload is the packed step's, and the counters the eager step's."""
+    from lidar_processing_tpu_torch.runtime.compiled import CompiledStep
+    x, m = (torch.from_numpy(a).to(cuda)[None] for a in pad_frame(
+        street_scene(0, "small")[0], CAP))
+    step = CompiledStep(tpipe.device_frame_step_stamped_batched, CFG, 1,
+                        cuda)
+    assert step.kernel_nodes("globaltimer_stamp_kernel") == 5
+    stages = len(tpipe.STAGES)
+    ratios = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        payload, stats = step(x, m)
+        end.record()
+        end.synchronize()
+        stamps = stats[0, :stages + 1].tolist()
+        assert all(b > a for a, b in zip(stamps, stamps[1:])), stamps
+        ratios.append((stamps[-1] - stamps[0]) * 1e-6
+                      / start.elapsed_time(end))
+    assert abs(sorted(ratios)[10] - 1.0) <= 0.05, ratios
+    _, want_stats = tpipe.device_frame_step_stamped_batched(x, m, CFG)
+    assert torch.equal(payload,
+                       tpipe.device_frame_step_packed_batched(x, m, CFG))
+    assert torch.equal(stats[:, stages + 1:], want_stats[:, stages + 1:])
+    step.release()
+
+
+def test_stamps_map_causally_onto_the_host_clock(cuda, tmp_path):
+    """Over 200 frames back to back, mapped onto the host clock within the
+    stated calibration error (and 20 µs of drift): the first stamp comes
+    after the dispatch began and the last before the wait on the payload
+    ended on at least 99% of the frames, and every frame's spans tile
+    publication to outputs within 0.5 ms, its four stages running on to
+    the hold (test_torch_trace.py::check_chain)."""
+    from lidar_processing_tpu_torch.runtime.stream import ReplayStream
+    from test_torch_trace import causal, check_chain
+    stream = ReplayStream(CFG, data_dir=_small_frames(tmp_path), device=cuda)
+    metrics = [m for _, m in stream.run(200)]
+    err = stream.clock_error_ns * 1e-9
+    assert err < 50e-6
+    for m in metrics:
+        check_chain(m)
+    assert sum(causal(m, err + 20e-6) for m in metrics) >= 0.99 * 200
+    stream.release()
+
+
+def test_profiler_spans_keep_the_host_clock(cuda, tmp_path):
+    """A span's record_function event in torch.profiler's trace and its
+    time.perf_counter start differ by one constant, within 50 µs, over a
+    profiled replay of 30 frames."""
+    import json
+    from lidar_processing_tpu_torch.runtime.stream import ReplayStream
+    stream = ReplayStream(CFG, data_dir=_small_frames(tmp_path), device=cuda)
+    stream.warmup()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        metrics = [m for _, m in stream.run(30)]
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = sorted(float(e["ts"]) for e in json.loads(path.read_text())[
+        "traceEvents"] if e.get("name") == "host.chi_hulls"
+        and e.get("ph") == "X")
+    starts = [s for m in metrics for n, s, _ in m.spans
+              if n == "host.chi_hulls"]
+    assert len(events) == len(starts) == 30
+    offsets = [ts - s * 1e6 for ts, s in zip(events, sorted(starts))]
+    assert max(offsets) - min(offsets) <= 50.0, offsets
+    stream.release()
