@@ -50,7 +50,7 @@ def _cmd_run(args) -> int:
     export_ids = (set(int(x) for x in args.export_frames.split(","))
                   if args.export_frames else set())
 
-    disp, host, missed, overflow, dropped = [], [], 0, 0, 0
+    disp, host, missed, overflow, dropped, early = [], [], 0, 0, 0, 0
     spans, stages, counters = {}, {}, {}    # name -> a value a frame
     for out, m in stream.run(n, realtime=args.realtime,
                              stage_timing=args.stage_timing):
@@ -69,6 +69,7 @@ def _cmd_run(args) -> int:
         missed += m.deadline_missed
         overflow += m.overflow
         dropped += m.frames_dropped
+        early += m.consumed_early
         for name in dict.fromkeys(n for n, _, _ in m.spans):
             spans.setdefault(name, []).append(total_ms(m.spans, name))
         for into, values in ((stages, m.device_ms), (counters, m.counters)):
@@ -88,7 +89,7 @@ def _cmd_run(args) -> int:
           f"p99={np.percentile(disp, 99):.2f}ms "
           f"host p50={np.percentile(host, 50):.2f}ms "
           f"deadline_missed={missed} overflow_frames={overflow} "
-          f"frames_dropped={dropped}")
+          f"frames_dropped={dropped} consumed_early={early}")
     for what, values, unit in (("spans", spans, "ms"),
                                ("device stages", stages, "ms"),
                                ("counters", counters, "")):

@@ -15,12 +15,15 @@ step, which the CPU always runs. Each frame's packed payload
 (runtime/pipeline.py) is copied into a pinned host buffer with
 ``non_blocking=True`` on the step's stream, and a CUDA event marks when it
 has landed; the copy is enqueued before the next step, so stream order
-keeps it from the replay that overwrites the graph's static output. At
-most ``queue_depth`` frames are in flight, and the host decodes the oldest
-while the device runs the next. Realtime mode keeps the DDS
-depth-``queue_depth`` semantics with a publication clock: a slow consumer
-sees dropped frames, not growing lag. On a CPU device the payload is
-cloned on the host and no event is used.
+keeps it from the replay that overwrites the graph's static output.
+Back to back, at most ``queue_depth`` frames are in flight, and the host
+decodes the oldest while the device runs the next. Realtime mode
+publishes on a clock and keeps the DDS depth-``queue_depth`` semantics: a
+frame is consumed as soon as the next publication leaves time, as the
+reference computes each sweep in its subscriber callback, and the window
+bounds the frames in flight only when the consumer falls behind, which
+then sees dropped frames, not growing lag. On a CPU device the payload
+is cloned on the host and no event is used.
 Per-stage metrics mirror the reference's timing logs
 (ref: src/processor.cpp:167-171,204-207,218-219).
 
@@ -86,8 +89,9 @@ class FrameMetrics:
 
     frame_id: int
     # dispatch to consumption: the step's launch, its queue and device
-    # time, and the hold in the depth-`queue_depth` window (``spans``
-    # splits it)
+    # time, and the hold in the window (``spans`` splits it); in realtime
+    # mode a frame is consumed as soon as the next publication leaves
+    # time, so it is held only where the consumer fell behind
     t_dispatch_ms: float
     t_host_ms: float          # host stage: payload decode, outlines, caps
     ground_points: int
@@ -124,14 +128,20 @@ class FrameMetrics:
     # publication: [stream.publication_wait,] stream.lag, stream.dispatch,
     # stream.queue (from the dispatch's start to the first device stamp),
     # the step.* stages (device stamps mapped to the host clock),
-    # stream.hold, stream.device_wait, host.decode, host.assemble,
-    # host.chi_hulls, host.caps, host.assemble, host.counts (decode,
-    # chi_hulls, caps and assemble make t_host_ms)
+    # stream.hold (ready outputs left in the window: empty in realtime
+    # mode unless the consumer fell behind, back to back until
+    # `queue_depth` newer frames are in flight), stream.device_wait,
+    # host.decode, host.assemble, host.chi_hulls, host.caps,
+    # host.assemble, host.counts (decode, chi_hulls, caps and assemble
+    # make t_host_ms)
     spans: List[Span] = dataclasses.field(default_factory=list)
     # the step's stages, device ms from its stamps
     device_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
     # the step's work counts (stixel backend): pipeline.COUNTERS
     counters: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # consumed because the next publication was not yet due (realtime
+    # mode); False where the full window or the end-of-run drain took it
+    consumed_early: bool = False
 
 
 class ReplayStream:
@@ -301,7 +311,8 @@ class ReplayStream:
             with_outlines: bool = True, stage_timing: bool = False):
         """Yield (FrameOutputs, FrameMetrics) for `num_frames` frames.
 
-        realtime=True paces dispatch at replay_rate_hz and flags deadline
+        realtime=True paces dispatch at replay_rate_hz, consumes each frame
+        while the next publication is not yet due, and flags deadline
         misses (the reference's 100 ms budget, ref: README.md:4).
         stage_timing=True times segmentation/clustering/hulls separately
         (synchronously — lower throughput, richer metrics). No span stays
@@ -358,10 +369,17 @@ class ReplayStream:
             # bounded window: consume the oldest once the queue is full
             while len(inflight) > depth:
                 yield self._consume(inflight.pop(0), period, with_outlines)
+            # realtime: consume while the next publication leaves time;
+            # once it is due, dispatch it first and let the window bound
+            while realtime and inflight and (
+                    time.perf_counter() < t_start + seq * period):
+                yield self._consume(inflight.pop(0), period, with_outlines,
+                                    early=True)
         while inflight:
             yield self._consume(inflight.pop(0), period, with_outlines)
 
-    def _consume(self, f: "_InFlight", period: float, with_outlines: bool):
+    def _consume(self, f: "_InFlight", period: float, with_outlines: bool,
+                 early: bool = False):
         consumed = Spans()
         t_wait = consumed.begin("stream.device_wait")
         if f.done is not None:
@@ -392,6 +410,7 @@ class ReplayStream:
         # while the launch call is still returning), the stages follow,
         # and the hold runs from the later of the last stamp and the
         # dispatch's return to the wait, empty where the wait began first
+        # (a realtime frame consumed before the next publication)
         last = max(f.t_dispatched, at[-1])
         device = ([("stream.queue", f.t_dispatch, max(f.t_dispatch, at[0]))]
                   + [(name, at[i], at[i + 1])
@@ -416,6 +435,7 @@ class ReplayStream:
             counters=(dict(zip(COUNTERS, stats[len(STAGES) + 1:]))
                       if self.config.pipeline.clustering_backend == "stixel"
                       else {}),
+            consumed_early=early,
         )
         return out, metrics
 

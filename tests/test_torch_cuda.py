@@ -962,6 +962,29 @@ def test_stamps_map_causally_onto_the_host_clock(cuda, tmp_path):
     stream.release()
 
 
+def test_realtime_frames_are_consumed_before_the_next_publication(
+        cuda, tmp_path):
+    """Paced at 10 Hz over 20 frames on the compiled step: every frame is
+    consumed while the next publication is not yet due, its outputs land
+    before it, its hold is empty (the host waits on the device from the
+    dispatch's return), and its spans tile publication to outputs."""
+    from lidar_processing_tpu_torch.runtime import spans as tspans
+    from lidar_processing_tpu_torch.runtime.stream import ReplayStream
+    from test_torch_trace import causal, check_chain
+    cfg = CFG.replace(pipeline=dataclasses.replace(CFG.pipeline,
+                                                   replay_rate_hz=10.0))
+    stream = ReplayStream(cfg, data_dir=_small_frames(tmp_path), device=cuda)
+    metrics = [m for _, m in stream.run(20, realtime=True)]
+    err = stream.clock_error_ns * 1e-9
+    for m in metrics:
+        check_chain(m)
+        assert causal(m, err + 20e-6)
+        assert m.consumed_early and m.frames_dropped == 0
+        assert m.spans[-1][2] < m.t_published + 0.1
+        assert tspans.total_ms(m.spans, "stream.hold") < 1.0
+    stream.release()
+
+
 def test_profiler_spans_keep_the_host_clock(cuda, tmp_path):
     """A span's record_function event in torch.profiler's trace and its
     time.perf_counter start differ by one constant, within 50 µs, over a

@@ -7,11 +7,15 @@ host stage's parts make ``t_host_ms``, the stamped step's payload is the
 packed step's word for word, its counters are the debug path's counts,
 realtime sequence numbers are those the benchmark rebuilds from
 ``frames_dropped``, ``deadline_missed`` times publication to outputs,
-and ``cli run`` prints the medians.
+a realtime frame is consumed as soon as the next publication leaves time
+(the window bounds the frames in flight only when the consumer falls
+behind) with the closed loop's outputs, and ``cli run`` prints the
+medians.
 """
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,23 +57,26 @@ def frames(tmp_path_factory):
     return str(path)
 
 
-def _run(frames, rate_hz, n, realtime):
-    stream = ReplayStream(_config(rate_hz), data_dir=frames, device="cpu")
-    return stream, [m for _, m in stream.run(n, realtime=realtime)]
+def _run(stream, n, realtime):
+    """(stream, metrics, outputs) of an n-frame run."""
+    got = list(stream.run(n, realtime=realtime))
+    return stream, [m for _, m in got], [out for out, _ in got]
 
 
 @pytest.fixture(scope="module")
 def closed(frames):
     """Back to back, 5 frames, a 1000 s period that every frame meets."""
-    return _run(frames, 0.001, 5, False)
+    return _run(ReplayStream(_config(0.001), data_dir=frames, device="cpu"),
+                5, False)
 
 
 @pytest.fixture(scope="module")
 def paced(frames):
     """Realtime at 5 Hz: each frame but the first waits for its
-    publication. The step returns the stream's own outputs of the frame,
-    computed once, with fresh stamps: the subject is the publication
-    clock, and a CPU step's time grows thirtyfold in a loaded test run."""
+    publication, and each is consumed before the next. The step returns
+    the stream's own outputs of the frame, computed once, with fresh
+    stamps: the subject is the publication clock, and a CPU step's time
+    grows thirtyfold in a loaded test run."""
     stream = ReplayStream(_config(5.0), data_dir=frames, device="cpu")
     outputs = [tuple(t.clone() for t in stream._step(fid))
                for fid in range(stream.num_frames)]
@@ -81,14 +88,16 @@ def paced(frames):
             stamp(stats, slot)
         return payload, stats[0]
     stream._step = step
-    return stream, [m for _, m in stream.run(4, realtime=True)]
+    list(stream.run(1))   # loads the native host stage before the clock
+    return _run(stream, 4, True)
 
 
 @pytest.fixture(scope="module")
 def dropping(frames):
     """Realtime at 40 Hz, far past what the CPU keeps up with: frames are
     dropped, and every frame misses its period."""
-    return _run(frames, 40.0, 4, True)
+    return _run(ReplayStream(_config(40.0), data_dir=frames, device="cpu"),
+                4, True)
 
 
 def check_chain(m):
@@ -139,7 +148,7 @@ def causal(m, err: float) -> bool:
 
 @pytest.mark.parametrize("run", ["closed", "paced", "dropping"])
 def test_spans_tile_publication_to_outputs(run, request):
-    stream, metrics = request.getfixturevalue(run)
+    stream, metrics, _ = request.getfixturevalue(run)
     for m in metrics:
         check_chain(m)
         assert causal(m, stream.clock_error_ns * 1e-9)
@@ -164,7 +173,7 @@ def test_counters_equal_the_debug_path(closed):
     on the same sweep and obstacle mask, in the fused path's sorted order:
     the tier tables' pair counts (without the chunked-pair column), the
     tested pairs that link, and n_edges."""
-    stream, metrics = closed
+    stream, metrics, _ = closed
     for m in metrics[:2]:
         x, mask = stream.xyz[m.frame_id], stream.mask[m.frame_id]
         ss = gpf_segment_sorted(x, mask, CFG.segmentation)
@@ -200,7 +209,7 @@ def test_realtime_seq_matches_the_rebuilt_sequence(dropping):
     """seq is what the benchmark rebuilds from frames_dropped (each
     delivery the last seq + 1 + its drops, its frame seq modulo the
     resident frames), and each publication time lies on the schedule."""
-    stream, metrics = dropping
+    stream, metrics, _ = dropping
     period = 1.0 / 40.0
     seq = -1
     for m in metrics:
@@ -220,6 +229,50 @@ def test_deadline_is_publication_to_outputs(closed, dropping):
             took = m.spans[-1][2] - m.t_published
             assert (took > period) is missed
             assert m.deadline_missed is missed
+
+
+@pytest.mark.parametrize("run", ["closed", "paced", "dropping"])
+def test_realtime_consumes_while_the_next_publication_leaves_time(run,
+                                                                  request):
+    """Realtime: a frame is consumed as soon as the next publication
+    leaves time (paced: before it, with an empty hold), and once the
+    consumer falls behind (dropping) the window consumes a frame only
+    when queue_depth newer ones are in flight, as back to back always."""
+    stream, metrics, _ = request.getfixturevalue(run)
+    depth = stream.config.pipeline.queue_depth
+    period = 1.0 / stream.config.pipeline.replay_rate_hz
+
+    def start(m, name):
+        return next(s for n, s, _ in m.spans if n == name)
+    dispatched = [start(m, "stream.dispatch") for m in metrics]
+    full = 0
+    for m in metrics:
+        # frames dispatched after this one before its consumption began
+        newer = sum(start(m, "stream.dispatch") < t
+                    < start(m, "stream.device_wait") for t in dispatched)
+        assert newer <= depth
+        if run == "paced":
+            assert m.consumed_early and newer == 0
+            assert m.spans[-1][2] < m.t_published + period
+            assert m.frames_dropped == 0
+            assert tspans.total_ms(m.spans, "stream.hold") < 1.0
+        if newer == depth or run == "closed":
+            assert not m.consumed_early
+        full += newer == depth
+    if run == "dropping":
+        assert full > 0 and sum(m.frames_dropped for m in metrics) > 0
+
+
+def test_paced_outputs_equal_the_closed_loop(closed, paced):
+    """The same frames give the same outputs whichever policy consumed
+    them: the paced run's against the closed loop's, by frame id."""
+    want = {m.frame_id: out for m, out in zip(closed[1], closed[2])}
+    assert [m.frame_id for m in paced[1]] == [0, 1, 0, 1]
+    for m, out in zip(paced[1], paced[2]):
+        for field in tpipe.FrameOutputs._fields:
+            np.testing.assert_equal(getattr(out, field),
+                                    getattr(want[m.frame_id], field),
+                                    err_msg=field)
 
 
 def test_spans_run_inside_the_profiler_only_while_it_records(monkeypatch):
