@@ -6,9 +6,12 @@ PCD files into a fresh directory under ``TMPDIR``; ``ReplayStream``
 loads them onto the device, ``warmup()`` captures the compiled step, and
 one pre-roll of ``queue_depth + 1`` frames through ``run()`` builds the
 native host stage and the stream's pinned payload buffers, so nothing
-builds inside the window. The window drives ``ReplayStream.run`` as the
-cell's traffic file says (``drive.py``); with tracing on, torch.profiler
-records a steady sub-window (``trace.py``). After the window the peak
+builds inside the window; in an open loop set-up ends at the program's
+first publication, after ``run()``'s own warm step. The window drives
+``ReplayStream.run`` as the cell's traffic file says (``drive.py``);
+with tracing on, torch.profiler records a steady sub-window
+(``trace.py``), and the per-layer readers get the window itself beside
+it. After the window the peak
 memory is read, the stream's graph is freed, and the deliveries are
 judged against the plain reference (``check.py``): a sample drawn from the
 seed, every resident frame among it.
@@ -19,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import math
 import os
 import shutil
 import sys
@@ -86,6 +90,10 @@ class Context(NamedTuple):
 
     frame_metrics: list         # FrameMetrics of the window's deliveries
     trace: Optional[object]     # trace.Trace of the sub-window, or None
+    window: Optional[object] = None   # drive.Window
+    # readers of the window's latencies take the frames published from
+    # here on (time.perf_counter s): after the profiler stopped
+    since: float = -math.inf
 
 
 class Result(NamedTuple):
@@ -167,13 +175,18 @@ def run_cell(spec, workload: str, seed: int, seconds: float, traced: bool,
                           dataclasses.asdict(ecfg), limits, device)
 
     metrics: Dict[str, Dict] = {}
+    if window.schedule_offset_s is not None:
+        # set-up ends at the program's first publication: run()'s warm
+        # step is set-up, and no frame's latency counts it
+        setup_s += window.schedule_offset_s
     if not traced:
         values = dict(window.metrics, setup_s=setup_s)
         for m in spec.end_to_end(workload):
             metrics[m["name"]] = {"value": values[m["name"]],
                                   "unit": m["unit"]}
     else:
-        ctx = Context([d.metrics for d in window.deliveries], tr)
+        ctx = Context([d.metrics for d in window.deliveries], tr, window,
+                      tracer.t_stopped)
         for m in spec.per_layer(workload):
             v = spec.reader(m["name"])(ctx)
             if v is not None:
@@ -188,6 +201,14 @@ def run_cell(spec, workload: str, seed: int, seconds: float, traced: bool,
             "failed": window.failed, "metrics": metrics, "device": dev}
     if tr is not None:
         line["breakdown"] = tr.breakdown()
+    if window.schedule_offset_s is not None:
+        # not metrics of their own: the warm step, inside setup_s, and
+        # the latencies over every frame of the window (per-layer metrics
+        # of traced runs, read after the profiler stopped)
+        line["schedule_offset_ms"] = window.schedule_offset_s * 1e3
+        line["latency_ms"] = {
+            "p50": window.metrics["latency_p50_ms"],
+            "p95": window.metrics["latency_p95_ms"]}
     line["checks"] = {k: {"value": verdict.numbers[k],
                           "limit": verdict.limits[k]}
                       for k in check.NUMBERS}

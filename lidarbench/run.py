@@ -6,7 +6,10 @@ Prints the correctness numbers, each beside its limit, as the last lines
 of standard error, and one JSON object as the last line of standard
 output: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer metrics),
-``device``, with ``--trace 1`` a ``breakdown``, and last ``checks``.
+``device``, with ``--trace 1`` a ``breakdown``, for an open loop
+``schedule_offset_ms`` (the program's first publication after the loop's
+start, counted in ``setup_s``) and ``latency_ms`` (``p50`` and ``p95``
+over every frame of the window; not metrics), and last ``checks``.
 Without a CUDA card, or with fewer cards than the cell asks for, or with
 JAX or the JAX package loaded, it exits non-zero and prints no result.
 """

@@ -33,5 +33,5 @@ def test_early_consume_share_is_declared_for_the_live_cell(spec):
         "name": METRIC, "unit": "%", "better": "higher",
         "source": "program_counter",
         "layer": "runtime: runtime/stream.py ReplayStream, the depth-2 window",
-        "moves": "latency_p50_ms",
+        "moves": "deadline_met_share",
         "workloads": ["kitti-hdl64e-host-outlines.live-10hz"]}

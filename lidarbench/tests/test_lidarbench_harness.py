@@ -73,27 +73,41 @@ class _Clock:
 
 
 class _Stub:
-    """A stream that delivers frame k of its schedule at a set time."""
+    """A stream that delivers frame k of its schedule at a set time, its
+    schedule starting ``origin`` s after the loop's first resumption,
+    each frame dispatched 1 ms after its publication; ``alter(seq, m)``
+    may change a frame's record."""
 
-    def __init__(self, clock, num_frames, deliver):
+    def __init__(self, clock, num_frames, deliver, origin=0.0, period=0.1,
+                 alter=None):
         self.clock, self.num_frames, self.deliver = clock, num_frames, deliver
+        self.origin, self.period, self.alter = origin, period, alter
 
     def run(self, n, realtime=False, with_outlines=True):
         assert with_outlines
+        start = self.clock.t + self.origin
         seq = 0
         for k, (t, dropped) in enumerate(self.deliver):
             seq += dropped
             self.clock.t = t
-            yield (f"out{seq}", SimpleNamespace(
+            pub = start + seq * self.period
+            m = SimpleNamespace(
                 frame_id=seq % self.num_frames, frames_dropped=dropped,
-                t_dispatch_ms=2.0 * (k + 1), t_host_ms=1.0))
+                t_dispatch_ms=2.0 * (k + 1), t_host_ms=1.0, seq=seq,
+                t_published=pub,
+                spans=[("stream.lag", pub, pub + 1e-3),
+                       ("stream.dispatch", pub + 1e-3, pub + 2e-3)])
+            if self.alter is not None:
+                self.alter(seq, m)
+            yield f"out{seq}", m
             seq += 1
 
 
 def test_open_loop_latency_counts_drops_in_the_tail():
     clock = _Clock()
-    # 10 Hz, 1 s window: frames 0..9 due; frame 4 dropped; each delivered
-    # 0.2 s + 10 ms after its publication
+    # 10 Hz, 1 s window, the schedule starting at the loop's anchor:
+    # frames 0..9 due; frame 4 dropped; each delivered 0.2 s + 10 ms
+    # after its publication
     times = []
     for s in range(12):
         if s == 4:
@@ -105,6 +119,113 @@ def test_open_loop_latency_counts_drops_in_the_tail():
     assert w.metrics["latency_p50_ms"] == pytest.approx(210.0)
     # the dropped frame is the tail: pending from 0.4 s to the end (1.11 s)
     assert w.metrics["latency_p95_ms"] == pytest.approx(710.0)
+    # every delivered frame came after its period, the dropped one never
+    assert w.metrics["deadline_met_share"] == 0.0
+    assert w.schedule_offset_s == 0.0
+    assert [(round(p, 9), round(s, 9), ok) for p, s, ok in w.timeline] == [
+        (round(k * 0.1, 9), 0.71 if k == 4 else 0.21, k != 4)
+        for k in range(10)]
+
+
+def _late_start(clock, origin, alter=None):
+    """Frames 0..11 at 10 Hz, the schedule starting ``origin`` s after
+    the loop's anchor, each delivered 25 ms after its publication and
+    frame 6 of them 60 ms after; frame 3 published 0.5 us off the
+    schedule, inside its tolerance."""
+    def off(seq, m):
+        if seq == 3:
+            m.t_published += 0.5e-6
+        if alter is not None:
+            alter(seq, m)
+    times = [(origin + s * 0.1 + (0.06 if s == 6 else 0.025), 0)
+             for s in range(12)]
+    return _Stub(clock, 4, times, origin=origin, alter=off)
+
+
+def test_open_loop_leaves_the_warm_step_before_the_schedule_out():
+    clock = _Clock()
+    # the program publishes its first frame 9.7 ms after the loop first
+    # resumes it: no frame's latency counts that step
+    w = drive.open_loop(_late_start(clock, 0.0097), 10.0, 1.0, clock=clock)
+    assert w.attempted == 10 and w.failed == 0
+    assert w.metrics["latency_p50_ms"] == pytest.approx(25.0, abs=1e-3)
+    assert w.metrics["latency_p95_ms"] == pytest.approx(60.0, abs=1e-3)
+    assert w.metrics["deadline_met_share"] == 100.0
+    assert w.schedule_offset_s == pytest.approx(0.0097)
+
+
+def _timeline():
+    """10 Hz: frames 0..19 published at k / 10 s; frame k delivered
+    (10 + k) ms after, frames 15 and 17 150 ms after, frame 3 dropped
+    (pending 2.0 s at the loop's end)."""
+    out = []
+    for k in range(20):
+        late = 0.15 if k in (15, 17) else 0.010 + 0.001 * k
+        out.append((0.1 * k, 2.0 if k == 3 else late, k != 3))
+    return out
+
+
+@pytest.mark.parametrize("since, p50, p95, met", [
+    (-math.inf, 20.0, 150.0, 85.0),    # 17 of 20 within 100 ms
+    (0.95, 25.0, 150.0, 80.0),         # frames 10..19
+    (1.85, 29.0, 29.0, 100.0),         # frame 19 alone
+])
+def test_latency_metrics_over_the_frames_since(since, p50, p95, met):
+    got = drive.latency_metrics(_timeline(), 0.1, since)
+    assert got["latency_p50_ms"] == pytest.approx(p50)
+    assert got["latency_p95_ms"] == pytest.approx(p95)
+    assert got["deadline_met_share"] == pytest.approx(met)
+    assert drive.latency_metrics(_timeline(), 0.1, 2.5) is None
+
+
+def test_latency_readers_take_the_frames_after_the_profiler(spec):
+    """latency_p50_ms.live and latency_p95_ms.live read the window's
+    timeline from ``Context.since`` on, and nothing without one."""
+    w = drive.Window([], 20, 1, 2.0, {}, 0.0, _timeline(), 0.1)
+    ctx = harness.Context([], None, w, 0.95)
+    want = drive.latency_metrics(_timeline(), 0.1, 0.95)
+    assert spec.reader("latency_p50_ms.live")(ctx) == want["latency_p50_ms"]
+    assert spec.reader("latency_p95_ms.live")(ctx) == want["latency_p95_ms"]
+    whole = harness.Context([], None, w)
+    assert spec.reader("latency_p95_ms.live")(whole) == pytest.approx(
+        drive.latency_metrics(_timeline(), 0.1)["latency_p95_ms"])
+    closed = drive.Window([], 5, 0, 1.0, {"frames_per_s": 5.0})
+    for name in ("latency_p50_ms.live", "latency_p95_ms.live"):
+        assert spec.reader(name)(harness.Context([], None, closed)) is None
+        assert spec.reader(name)(harness.Context([], None)) is None
+
+
+def _shift_publication(seq, m):
+    if seq == 5:
+        m.t_published += 2e-6
+
+
+def _early_dispatch(seq, m):
+    if seq == 2:
+        m.spans[1] = ("stream.dispatch", m.t_published - 1e-4,
+                      m.t_published + 1e-3)
+
+
+def _wrong_seq(seq, m):
+    if seq == 7:
+        m.seq = 8
+
+
+@pytest.mark.parametrize("origin, alter", [
+    (0.0097, _shift_publication),   # a publication 2 us off the schedule
+    (-0.001, None),                 # the schedule starts before the loop
+    (0.051, None),                  # ... or over half a period after it
+    (1.5, None),                    # ... far over it
+    (0.0097, _early_dispatch),      # a dispatch before its publication
+    (0.0097, _wrong_seq),           # a seq not the one the loop rebuilds
+], ids=["off-schedule", "origin-before-anchor", "origin-too-late",
+        "origin-far-too-late",
+        "dispatch-before-publication", "wrong-seq"])
+def test_open_loop_refuses_a_publication_off_its_schedule(origin, alter):
+    clock = _Clock()
+    with pytest.raises(drive.ScheduleError):
+        drive.open_loop(_late_start(clock, origin, alter), 10.0, 1.0,
+                        clock=clock)
 
 
 def test_closed_loop_rate():

@@ -72,7 +72,7 @@ def test_program_readers_find_nothing_without_the_fields(spec):
 
 def test_program_metrics_are_declared_for_their_cells(spec):
     """Each reader's metric is a per_layer entry with its cells listed,
-    the live cell's two moving its latencies, the rest frames_per_s."""
+    the live cell's moving its deadline share, the rest frames_per_s."""
     entries = {m["name"]: m for m in spec.bench["per_layer"]}
     for name in PROGRAM:
         m = entries[name]
@@ -80,7 +80,7 @@ def test_program_metrics_are_declared_for_their_cells(spec):
         assert m["workloads"] == [
             "kitti-hdl64e-host-outlines."
             + ("live-10hz" if live else "replay-max")]
-        assert (m["moves"].startswith("latency_") if live
+        assert (m["moves"] == "deadline_met_share" if live
                 else m["moves"] == "frames_per_s")
         assert m["source"] in ("program_span", "program_counter")
 

@@ -8,14 +8,18 @@ Between two deliveries the stream dispatches exactly as many frames as
 it delivers, so the sub-window steps ``frames`` frames. The trace is
 read from torch.profiler's Chrome trace: device activity is every
 kernel, memcpy and memset event; host activity the CPU-side events
-(operators, CUDA runtime calls, this harness's spans).
+(operators, CUDA runtime calls, this harness's spans). ``t_stopped``
+is when the profiler stopped: the live latencies' readers take the
+frames published after it, which the profiler's host overhead missed.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import tempfile
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -118,6 +122,8 @@ class Tracer:
         self.span = None
         self.done = False
         self.trace: Optional[Trace] = None
+        # when the profiler stopped (time.perf_counter s); -inf until then
+        self.t_stopped = -math.inf
 
     def prime(self, device) -> None:
         """One profiled step of nothing much, in set-up: the profiler's
@@ -152,6 +158,7 @@ class Tracer:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             self.prof.stop()
+            self.t_stopped = time.perf_counter()
 
     def finish(self) -> Optional[Trace]:
         """After the window: stop the profiler if the window ended first
