@@ -148,6 +148,16 @@ Phases (any failure raises, so the script never exits 0 after one):
      take (bound); then both main-path kernels' batched launches on
      frames 0-7's own calls (phase 7) against 8 single launches and the
      batched twins, bit for bit, timed;
+  14b. the same kernels at the shapes of the benchmark configuration
+     waymo-top64-host-outlines, whose tier slots, obstacle buffer and
+     outline slots pass DEFAULT_CONFIG's: its street 0 (~159k points)
+     through the batched step, both tier_min_d2 calls at its tier tables,
+     overflow 0; tier_min_d2 on those calls and on crafted descriptor
+     sets at both its tables on its obstacle buffer (bit for bit);
+     union_find on the street's edge list and on a random graph of as
+     many edges (equal); min_d2 at every tier shape of its tables (<= 4
+     ULP). ``python3 chip_smoke.py --configurations`` runs phases 1, 2
+     and this one alone;
   15. probes: the union-find probes first (check_uf_probes): uf_probe,
      uf_serial, uf_packed and uf_packed_noskip equal to the twin and scipy
      on every contract graph, ragged edge arrays and the three graphs
@@ -249,6 +259,8 @@ CSRC = "lidar_processing_tpu_torch/csrc"
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
 CDIST = "donot_use_mm_for_euclid_dist"
+# a benchmark configuration whose caps pass DEFAULT_CONFIG's
+WAYMO = "waymo-top64-host-outlines"
 # each main-path kernel wrapper's CUDA kernel, as torch.profiler names it
 KERNEL_OF = {"tier_min_d2": "tier_min_d2_kernel",
              "union_find": "union_find_kernel", "min_d2": "min_d2_kernel",
@@ -396,6 +408,7 @@ def min_d2_inputs(rng, p, wu, wv, device):
 
 
 def check_min_d2(device):
+    from lidar_processing_tpu_torch.config import DEFAULT_CONFIG as cfg
     from lidar_processing_tpu_torch.kernels.min_d2 import (min_d2_planar,
                                                            min_d2_planar_ref)
     from lidar_processing_tpu_torch.ops import stixel as sx
@@ -404,7 +417,7 @@ def check_min_d2(device):
     worst, max_abs, plain_ms, lib_ms, bound_ms = 0, 0.0, 0.0, 0.0, 0.0
     sums = {"kernel": 0.0, "device": 0.0, "warm": 0.0, "host": 0.0,
             "library device": 0.0}
-    for u_cap, v_cap, slots in sx._TIERS_INTRA + sx._TIERS_SNP:
+    for u_cap, v_cap, slots in sum(sx.tier_tables(cfg.pipeline), ()):
         p, wu, wv = slots, u_cap + 8, v_cap + 32
         args = min_d2_inputs(rng, p, wu, wv, device)
         u, v = torch.stack(args[:3], -1), torch.stack(args[3:], -1)
@@ -598,7 +611,7 @@ def check_tier_min_d2(device, frame_calls):
     no = cfg.pipeline.max_obstacle_points
     sets = [(f"frame 0 {name}", args) for name, args in
             zip(("intra", "snp"), frame_calls)]
-    for table, tiers in (("intra", sx._TIERS_INTRA), ("snp", sx._TIERS_SNP)):
+    for table, tiers in zip(("intra", "snp"), sx.tier_tables(cfg.pipeline)):
         for name, *case in tier_cases(tiers, n=no, seed=len(table)):
             sets.append((f"{table} {name}", (*(torch.from_numpy(a).to(device)
                                                for a in case), tiers)))
@@ -640,6 +653,118 @@ def check_tier_min_d2(device, frame_calls):
     return {"name": "tier_min_d2", "source": f"{CSRC}/tier_min_d2.cu",
             "replaces": "lidar_processing_tpu/kernels/min_d2.py:48",
             "max_abs_err": 0.0, **total, "library_ms": None}
+
+
+def config_street(name: str, street: int = 0):
+    """(engine config, xyz) of a benchmark configuration's street, as
+    the benchmark builds them (lidarbench/harness.py, scenes.py)."""
+    from lidarbench import harness, scenes
+    with open(HERE / "lidarbench" / "configs" / f"{name}.json") as f:
+        config = json.load(f)
+    cfg = harness.engine_config(config, {"loop": "closed", "queue_depth": 2})
+    return cfg, scenes.street_sweep(street, config)[0]
+
+
+def check_config_kernels(device, name: str = WAYMO) -> None:
+    """The main-path kernels against their twins at a benchmark
+    configuration's own shapes, where they differ from DEFAULT_CONFIG's:
+    its street 0 through the batched step (B = 1, cluster_fused), which
+    must run both tier_min_d2 calls at the configuration's tier tables
+    and report overflow 0; tier_min_d2 on those two calls and on
+    tier_cases' crafted sets at both tables on the configuration's
+    obstacle buffer (bit for bit); union_find on the street's edge list
+    and on a random graph of as many edges, at max_supernodes (equal);
+    min_d2 at every tier shape of its tables (<= 4 ULP)."""
+    import torch
+    from lidar_processing_tpu_torch.io.synthetic import pad_frame
+    from lidar_processing_tpu_torch.kernels.min_d2 import (min_d2_planar,
+                                                           min_d2_planar_ref)
+    from lidar_processing_tpu_torch.kernels.tier_min_d2 import (
+        tier_min_d2, tier_min_d2_ref)
+    from lidar_processing_tpu_torch.kernels.union_find import (cc_labels,
+                                                               cc_labels_ref)
+    from lidar_processing_tpu_torch.ops import stixel as sx
+    from lidar_processing_tpu_torch.runtime.pipeline import (
+        device_frame_step_batched)
+    from lidar_processing_tpu_torch.tools.kernel_cases import tier_cases
+
+    cfg, xyz = config_street(name)
+    pcfg, tables = cfg.pipeline, sx.tier_tables(cfg.pipeline)
+    x, m = (torch.from_numpy(a).to(device)[None]
+            for a in pad_frame(xyz, pcfg.max_points))
+    calls = {"tier_min_d2": [], "union_find": []}
+    kernels = (sx.tier_min_d2, sx.cc_labels)
+
+    def recording(kernel, fn):
+        def record(*args):
+            calls[kernel].append(args)
+            return fn(*args)
+        return record
+
+    sx.tier_min_d2 = recording("tier_min_d2", kernels[0])
+    sx.cc_labels = recording("union_find", kernels[1])
+    try:
+        res = device_frame_step_batched(x, m, cfg)
+    finally:
+        sx.tier_min_d2, sx.cc_labels = kernels
+    overflow = int(res.clustering.overflow.sum() + res.hull_overflow.sum())
+    if overflow:
+        raise AssertionError(f"{name} street 0: overflow {overflow}")
+    if [c[-1] for c in calls["tier_min_d2"]] != list(tables):
+        raise AssertionError(f"{name} street 0: tier_min_d2 ran at "
+                             f"{[c[-1] for c in calls['tier_min_d2']]}, not "
+                             f"the configuration's {tables}")
+    if len(calls["union_find"]) != 1:
+        raise AssertionError(f"{name} street 0: {calls['union_find']}")
+    log(f"{name} street 0: {xyz.shape[0]} points, "
+        f"{int(res.clustering.num_clusters.sum())} clusters, overflow 0; "
+        f"tier_min_d2 at {tables}")
+
+    sets = [(f"street 0 {table}", args) for table, args in
+            zip(("intra", "snp"), calls["tier_min_d2"])]
+    for table, tiers in zip(("intra", "snp"), tables):
+        for case, *arrays in tier_cases(tiers, n=pcfg.max_obstacle_points,
+                                        seed=len(table)):
+            sets.append((f"{table} {case}", (*(torch.from_numpy(a).to(device)
+                                               for a in arrays), tiers)))
+    for what, args in sets:
+        got, want = tier_min_d2(*args), tier_min_d2_ref(*args)
+        if not same_bits(got, want):
+            raise AssertionError(f"{name} tier_min_d2 {what}: "
+                                 f"{int((got != want).sum())} slots differ "
+                                 f"from the twin")
+        ms = cuda_ms(lambda: tier_min_d2(*args))
+        log(f"{name} tier_min_d2 {what} ({int(args[4].sum())} pairs in "
+            f"tiers, n {args[0].shape[-2]}): {got.numel()} slots, "
+            f"bit-identical to the twin, kernel {ms:.4f} ms")
+
+    eu, ev, ne, s_cap = calls["union_find"][0]
+    n_e = int(ne.sum())
+    rng = np.random.default_rng(2)
+    graphs = {"street 0 edges": (eu, ev, ne),
+              f"random, {n_e} edges": tuple(
+                  a[None] for a in random_graph(rng, s_cap, pcfg.max_edges,
+                                                n_e, device))}
+    for what, g in graphs.items():
+        got, want = cc_labels(*g, s_cap), cc_labels_ref(*g, s_cap)
+        if not same_bits(got, want):
+            raise AssertionError(f"{name} union_find {what}: "
+                                 f"{int((got != want).sum())} differ")
+        log(f"{name} union_find {what} ({s_cap} nodes): equal to the twin "
+            f"({len(torch.unique(got))} components), kernel "
+            f"{cuda_ms(lambda: cc_labels(*g, s_cap)):.4f} ms")
+
+    worst = 0
+    for u_cap, v_cap, slots in sorted(set(sum(tables, ()))):
+        p, wu, wv = slots, u_cap + 8, v_cap + 32
+        args = min_d2_inputs(rng, p, wu, wv, device)
+        got = min_d2_planar(*args).cpu().numpy()
+        ulp = ulp_diff(got, min_d2_planar_ref(*args).cpu().numpy())
+        if got.shape != (p,) or ulp > 4:
+            raise AssertionError(f"{name} min_d2 ({p},{wu},{wv}): {ulp} ULP")
+        worst = max(worst, ulp)
+    log(f"{name} min_d2 at its {len(set(sum(tables, ())))} tier shapes: "
+        f"max {worst} ULP")
 
 
 def uf_bound(n_edges: int, edge_bytes: int, s_cap: int) -> dict:
@@ -2253,7 +2378,7 @@ def check_cellgraph_cuda_vs_cpu(stream) -> None:
     from lidar_processing_tpu_torch.ops.clustering import cluster
     from lidar_processing_tpu_torch.ops.hull import label_runs
     from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
-    from lidar_processing_tpu_torch.runtime.pipeline import NUM_SLOTS
+    from lidar_processing_tpu_torch.runtime.pipeline import num_slots
     from lidar_processing_tpu_torch.types import SEG_OBSTACLE
     cfg = stream.config
     x, m = stream.xyz[0], stream.mask[0]
@@ -2266,8 +2391,8 @@ def check_cellgraph_cuda_vs_cpu(stream) -> None:
         if not same_bits(a.cpu(), b):
             raise AssertionError(f"cellgraph cluster.{name}: CUDA and CPU "
                                  f"differ")
-    runs_gpu = label_runs(x, on_gpu.labels, NUM_SLOTS)
-    runs_cpu = label_runs(x.cpu(), on_cpu.labels, NUM_SLOTS)
+    runs_gpu = label_runs(x, on_gpu.labels, num_slots(cfg))
+    runs_cpu = label_runs(x.cpu(), on_cpu.labels, num_slots(cfg))
     if not all(same_bits(a.cpu(), b) for a, b in zip(runs_gpu, runs_cpu)):
         raise AssertionError("label_runs: CUDA and CPU differ")
     log(f"cellgraph frame 0: cluster and label_runs on the card == on the "
@@ -2954,6 +3079,11 @@ def main() -> None:
     device, smi = check_device()
     with phase("build"):
         build_s, native_s = build_all()
+    if sys.argv[1:] == ["--configurations"]:
+        with phase(f"kernels at {WAYMO}"):
+            check_config_kernels(device)
+        print(smi, flush=True)
+        return
     # the main path first: its step is bound by the host's launch path, so
     # it is timed before the profiler and the large yardstick calls of the
     # kernel checks can slow the process down
@@ -2995,6 +3125,8 @@ def main() -> None:
         kernels = [check_tier_min_d2(device, tier_calls), uf_record,
                    check_min_d2(device)]
         check_batched_kernels(batched_calls)
+    with phase(f"kernels at {WAYMO}"):
+        check_config_kernels(device)
     with phase("probes"):
         kernels += check_uf_probes(device, edges, smi)
         kernels += check_pairs(device) + check_mosaic2(device)

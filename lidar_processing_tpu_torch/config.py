@@ -2,8 +2,12 @@
 
 A copy of ``lidar_processing_tpu/config.py`` that the PyTorch port can
 import where jax is not installed (the JAX package's ``__init__`` pulls jax
-in through ``types.py``); tests/test_torch_no_jax.py holds every field and
-default against the original.
+in through ``types.py``); tests/test_torch_pipeline.py holds every field
+and default against the original. ``PipelineConfig`` adds the step's
+capacities that the JAX package keeps as module constants and that a
+configuration needs to set (the intra-column tier slots, the expansion
+bands, the large outline slots): ``PORT_PIPELINE_FIELDS``, whose defaults
+are those constants.
 
 Mirrors the reference's three hard-coded config structs
 (ref: src/segmentation.hpp:48-56, src/clustering.hpp:42-48,
@@ -18,6 +22,7 @@ first-class configuration here rather than runtime `reserve()` calls.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,12 +118,36 @@ class PipelineConfig:
     # (runtime/pipeline.py pack_host_payload; 154-frame max is ~60k,
     # bounded above by max_obstacle_points; overflow-counted)
     payload_large_points: int = 65536
+    # Stixel exact-test tier slots of the intra-column cell pairs, one per
+    # tier shape of ops/stixel.py's _TIER_SHAPES, and the supernode-pair
+    # expansion bands (widths 2, 4, 8, 16): the JAX package's tables,
+    # 154-frame KITTI maxima with >=1.15x headroom. Excess counts as
+    # overflow.
+    intra_tier_slots: Tuple[int, ...] = (2176, 64, 896, 192, 96, 64)
+    expansion_band_caps: Tuple[int, ...] = (10240, 3840, 512, 64)
+    # host outline slots (runtime/pipeline.py): the clusters that take no
+    # device convex-hull slot; excess counts as hull overflow
+    large_cluster_slots: int = 512
     replay_rate_hz: float = 10.0         # ref: src/dataloader.cpp:30
     queue_depth: int = 2                 # DDS QoS keep-last depth (processor.cpp:69)
     # Clustering backend: "stixel" (ops/stixel.py, sort/scan-based — the
     # fast path) or "cellgraph" (ops/clustering.py, neighbor-table based —
     # the original reference implementation, kept for cross-validation).
     clustering_backend: str = "stixel"
+
+    def __post_init__(self):
+        # a JSON configuration gives lists: the config stays hashable
+        for name, n in (("intra_tier_slots", 6), ("expansion_band_caps", 4)):
+            object.__setattr__(self, name,
+                               tuple(int(v) for v in getattr(self, name)))
+            if len(getattr(self, name)) != n:
+                raise ValueError(f"PipelineConfig.{name} needs {n} entries, "
+                                 f"got {getattr(self, name)}")
+
+
+# the PipelineConfig fields the JAX package keeps as module constants
+PORT_PIPELINE_FIELDS = ("intra_tier_slots", "expansion_band_caps",
+                        "large_cluster_slots")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,13 @@
 """State carried across from the JAX package, without importing jax.
 
 The engine has no weights: its state is the config tree, the static tier
-tables (copied verbatim into ops/stixel.py) and the frames. These helpers
-give both packages the same inputs:
+tables (the JAX package's module constants, PipelineConfig's defaults
+here) and the frames. These helpers give both packages the same inputs:
 
   * ``config_from_jax`` rebuilds the port's EngineConfig from any dataclass
     tree with the same fields (the JAX package's, through
-    ``dataclasses.asdict``);
+    ``dataclasses.asdict``), the port's own pipeline capacities
+    (``config.PORT_PIPELINE_FIELDS``) at their defaults;
   * ``to_torch`` / ``to_numpy`` convert NamedTuples (nested) of arrays.
 """
 

@@ -3,8 +3,8 @@
 Port of ``lidar_processing_tpu/ops/stixel.py`` (the reference's KD-tree +
 BFS FEC, ref: src/clustering.cpp:47-125, as exact connected components of
 the d² <= distance_squared radius graph, labels canonicalised by minimum
-original point index). The algorithm and every static cap are the JAX
-package's, step for step:
+original point index). The algorithm, and every static cap at the default
+configuration, are the JAX package's, step for step:
 
   1. ONE sort of all points by (xy-column, z-cell) key; cells are
      h = R/sqrt(3) cubes, so every cell is a clique of the radius graph.
@@ -68,20 +68,42 @@ _GZ = 128
 _XY_OFFSETS = [(0, 1), (0, 2), (1, -2), (1, -1), (1, 0), (1, 1), (1, 2),
                (2, -2), (2, -1), (2, 0), (2, 1), (2, 2)]
 
-# exact-test tiers: (u-side cap, v-side cap, pair slots), first-fit in
-# order, every pair oriented so u is the smaller side; slots sized to the
-# 154-frame KITTI maxima with >=1.15x headroom (verbatim from the JAX
-# package, whose comment records the measurements)
-_TIERS_INTRA = ((8, 32, 2176), (8, 96, 64), (32, 96, 896),
-                (96, 96, 192), (96, 288, 96), (288, 288, 64))
-_TIERS_SNP = ((8, 32, 9216), (8, 96, 1152), (32, 96, 2688),
-              (96, 96, 288), (96, 288, 1280), (288, 288, 512))
+# exact-test tier shapes: (u-side cap, v-side cap), first-fit in order,
+# every pair oriented so u is the smaller side. A tier table adds each
+# tier's pair slots: PipelineConfig's intra_tier_slots for the
+# intra-column cell pairs, _SN_PAIR_TIER_SLOTS for the supernode pairs
+# (the JAX package's, 154-frame KITTI maxima with >=1.15x headroom)
+_TIER_SHAPES = ((8, 32), (8, 96), (32, 96), (96, 96), (96, 288), (288, 288))
+_SN_PAIR_TIER_SLOTS = (9216, 1152, 2688, 288, 1280, 512)
 _CHUNK = 288
 _CHUNK_GRID = 8
 _CHUNK_PAIRS_INTRA = 64
 _CHUNK_PAIRS_SNP = 512
-# supernode-pair expansion band caps (widths 2, 4, 8, 16)
-_E_CAPS = (10240, 3840, 512, 64)
+# supernode-pair expansion band widths; each band's cap is
+# PipelineConfig's expansion_band_caps
+_E_WIDTHS = (2, 4, 8, 16)
+
+
+def tier_table(slots) -> Tuple[Tuple[int, int, int], ...]:
+    """The (u_cap, v_cap, slots) table of _TIER_SHAPES with these slots."""
+    return tuple((u, v, int(s)) for (u, v), s in zip(_TIER_SHAPES, slots,
+                                                      strict=True))
+
+
+_TIERS_SNP = tier_table(_SN_PAIR_TIER_SLOTS)
+
+
+def tier_tables(pcfg: PipelineConfig):
+    """The (intra-column, supernode-pair) tier tables the step runs at."""
+    return tier_table(pcfg.intra_tier_slots), _TIERS_SNP
+
+# the work counters a `counts` view takes, column by column: the pairs both
+# tier tables test, those that link, the edges union_find takes; each
+# frame's obstacle points before the buffer's clamp and the buffer's
+# slots; the fullest tier's pairs (by share of its slots, both tables)
+# and its slots
+COUNTERS = ("tier_pairs", "tier_links", "uf_edges", "obstacle_points",
+            "obstacle_slots", "tier_peak_pairs", "tier_peak_slots")
 
 
 def _iota(n: int, device) -> torch.Tensor:
@@ -233,7 +255,7 @@ class _PairTest(NamedTuple):
 
 
 def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
-                  tiers=_TIERS_SNP, chunk_pairs: int = _CHUNK_PAIRS_SNP,
+                  tiers, chunk_pairs: int = _CHUNK_PAIRS_SNP,
                   debug: bool = False, counts=None):
     """Run tiered block tests; scatter edge verdicts into (B, n_results)
     bool.
@@ -246,9 +268,10 @@ def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
     frame's per-tier pair counts + the chunked-pair count ("tiers"), and
     checksums of the tiers' window starts ("tier_idx") and windows
     ("windows"), as the JAX package's dict; without it dbg is None and
-    none of that is launched. `counts`, an int64 (B, 2+) view or None,
-    gains each frame's tested pairs (column 0: the tier tables' pair
-    counts) and the tested pairs that link (column 1).
+    none of that is launched. `counts`, an int64 (B, len(COUNTERS)) view
+    or None, gains each frame's tested pairs (column 0: the tier tables'
+    pair counts) and the tested pairs that link (column 1), and keeps the
+    fullest tier (columns 5-6).
     """
     dev = sp_xyz.device
     frames = sp_xyz.shape[0]
@@ -301,7 +324,7 @@ def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
     # inactive rows sort last, after any unassigned-but-active rows
     tier_id = torch.where(act_, tier_id, n_t_all + 1)
 
-    # pack (start, count) per side into one operand: starts < 2^17 and
+    # pack (start, count) per side into one operand: starts < 2^22 and
     # active counts <= 288 < 512; inactive rows clamp (masked on read)
     _, s_usuc, s_vsvc, s_slot = sort_by(
         tier_id, o_us * 512 + torch.clamp(o_uc, max=511),
@@ -326,6 +349,7 @@ def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
     if counts is not None:
         counts[:, 0].add_(n_in_tier.sum(-1))
         counts[:, 1].add_(verdict.sum(-1))
+        _keep_fullest_tier(counts[:, 5:7], n_in_tier, lay.slots)
     # ONE verdict scatter for all tiers
     out = set_drop(torch.zeros((frames, n_results), dtype=torch.bool,
                                device=dev),
@@ -341,6 +365,18 @@ def _tiered_exact(sp_xyz, pt: _PairTest, r2: float, n_results: int,
                            for us, _, vs, _ in slices),
            "windows": sum(wins)}
     return out, overflow, dbg
+
+
+def _keep_fullest_tier(peak, n_in_tier, slots) -> None:
+    """peak, an int64 (B, 2) view of the fullest tier's (pairs, slots)
+    so far ((0, 0) before the first table), takes this table's fullest
+    tier unless the one it holds is fuller: a tie goes to this table's
+    first such tier, and so does a frame with no pairs."""
+    pairs = torch.cat([n_in_tier.long(), peak[:, :1]], 1)
+    caps = torch.cat([slots.long().expand(n_in_tier.shape),
+                      torch.clamp(peak[:, 1:], min=1)], 1)
+    i = (pairs.double() / caps).argmax(1, keepdim=True)
+    peak.copy_(torch.cat([pairs.gather(1, i), caps.gather(1, i)], 1))
 
 
 class _TierLayout(NamedTuple):
@@ -532,12 +568,14 @@ class FusedClusterOut(NamedTuple):
 
 
 def _sort_points_full(xyz, obstacle, point_valid, orig, seg_labels,
-                      pcfg: PipelineConfig, h: float):
+                      pcfg: PipelineConfig, h: float, counts=None):
     """_sort_points variant that keeps the FULL permutation.
 
     Obstacle points sort first (by cell key), then remaining valid points
-    (key IMAX - 1), then padding (IMAX). orig (< 2^17) and the 2-bit seg
-    label pack into one operand (orig * 4 + seg).
+    (key IMAX - 1), then padding (IMAX). orig (< 2^29) and the 2-bit seg
+    label pack into one operand (orig * 4 + seg). `counts` (as
+    ``_tiered_exact``'s) takes the obstacle points and the buffer's slots
+    (columns 3-4).
     Returns (sp, key_full, orig4_full, seg_full).
     """
     no = pcfg.max_obstacle_points
@@ -549,6 +587,9 @@ def _sort_points_full(xyz, obstacle, point_valid, orig, seg_labels,
                                   xyz[..., 2], orig4)
     n_obst = _count(key < _IMAX - 1)
     overflow = (_count(coord_bad) + torch.clamp(n_obst - no, min=0))
+    if counts is not None:
+        counts[:, 3] = n_obst[:, 0]
+        counts[:, 4] = no
     slice_key = torch.where(_iota(no, xyz.device) < n_obst, sk[:, :no],
                             _IMAX)
     sp = _SortedPoints(torch.stack([sx[:, :no], sy[:, :no], sz[:, :no]],
@@ -567,7 +608,8 @@ def cluster_fused(xyz_s, obstacle_s, point_valid_s, orig_s, seg_labels_s,
     or one frame without the B; orig_s carries the original index. Both
     stages' labels return to original order with ONE sort on the packed
     orig*4+seg key, and the cell-key-sorted obstacle arrays feed the hull
-    stage directly. `counts`: as ``_cluster_core``'s.
+    stage directly. `counts`, an int64 (B, len(COUNTERS)) view or None,
+    takes every one of the COUNTERS.
     """
     if xyz_s.dim() == 2:
         return frame_of(cluster_fused(
@@ -578,7 +620,8 @@ def cluster_fused(xyz_s, obstacle_s, point_valid_s, orig_s, seg_labels_s,
     no = pcfg.max_obstacle_points
     h = math.sqrt(cfg.distance_squared / 3.0)
     sp, key_full, orig_full, _ = _sort_points_full(
-        xyz_s, obstacle_s, point_valid_s, orig_s, seg_labels_s, pcfg, h)
+        xyz_s, obstacle_s, point_valid_s, orig_s, seg_labels_s, pcfg, h,
+        counts)
     pt_label, num_clusters, overflow, _ = _cluster_core(sp, cfg, pcfg,
                                                         counts=counts)
 
@@ -631,9 +674,10 @@ def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
     overflow (B,1), debug dict or None). The dict and the reductions only
     it needs are built when `debug` asks: in eager PyTorch each would be a
     launch on the main path (XLA dead-code-eliminated them in the JAX
-    package). `counts`, an int64 (B, 3) view or None, gains the pairs both
-    tier tables test, those that link, and the live edges union_find
-    takes: a few reductions, launched only when it is given.
+    package). `counts`, an int64 (B, len(COUNTERS)) view or None, gains
+    the pairs both tier tables test, those that link, the live edges
+    union_find takes and the fullest tier: a few reductions, launched
+    only when it is given.
     """
     r2 = cfg.distance_squared
     m = pcfg.max_cells
@@ -667,7 +711,7 @@ def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
         slot=_iota(2 * m, dev).expand(frames, -1),
         active=torch.cat(intra_tests, 1))
     intra_verdict, ovf_t, dbg_t1 = _tiered_exact(
-        sp.xyz, pt, r2, 2 * m, tiers=_TIERS_INTRA,
+        sp.xyz, pt, r2, 2 * m, tiers=tier_tables(pcfg)[0],
         chunk_pairs=_CHUNK_PAIRS_INTRA, debug=debug, counts=counts)
     overflow = overflow + ovf_t
     link1 = intra_link[1] | intra_verdict[:, :m]
@@ -734,12 +778,13 @@ def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
     offs = [torch.zeros((frames, 1), dtype=_I32, device=dev)]
     for k in range(4):
         offs.append(offs[-1] + n_cls[k])
-    pad_sl = spa.new_zeros((frames, max(_E_CAPS)))
+    e_caps = pcfg.expansion_band_caps
+    pad_sl = spa.new_zeros((frames, max(e_caps)))
     spa_p = torch.cat([spa, pad_sl], 1)
     spb_p = torch.cat([spb, pad_sl], 1)
 
     def expand_band(band, width):
-        cap = _E_CAPS[band]
+        cap = e_caps[band]
         a = dynamic_slice(spa_p, offs[band], cap)
         b = dynamic_slice(spb_p, offs[band], cap)
         nb = n_cls[band]
@@ -757,7 +802,7 @@ def _cluster_core(sp: _SortedPoints, cfg: ClusteringConfig,
                & ((g[:, None] > 0) | (g > 0))).reshape(frames, -1)
         return eu, ev, eok, torch.clamp(nb - cap, min=0)
 
-    bands = [expand_band(b, w) for b, w in enumerate((2, 4, 8, 16))]
+    bands = [expand_band(b, w) for b, w in enumerate(_E_WIDTHS)]
     for *_, ovf in bands:
         overflow = overflow + ovf
     # assemble the supernode pair list, valid pairs packed to the front by

@@ -37,7 +37,7 @@ from ..config import EngineConfig, SegmentationConfig, SpatialConfig
 from ..ops.hull import label_runs
 from ..ops.scan_utils import set_drop, sort_by
 from ..ops.segmentation import _fit_partition, _partition_sort, _seed_runs
-from ..runtime.pipeline import NUM_SLOTS, FrameResult, _hull_stage
+from ..runtime.pipeline import FrameResult, _hull_stage, num_slots
 from ..types import (ClusteringResult, Plane, SegmentationResult,
                      SEG_OBSTACLE, SEG_UNKNOWN, frame_of, map_leaves)
 from .mesh import Mesh
@@ -127,7 +127,7 @@ def _step_spatial(mesh: Mesh, xyz: torch.Tensor, mask: torch.Tensor,
         mesh, axis, xyz[None], obstacle[None], config.clustering,
         config.pipeline, config.spatial)
     cl = ClusteringResult(labels[0], num[0], overflow[0] + seg_ovf)
-    runs = label_runs(xyz, cl.labels, NUM_SLOTS)
+    runs = label_runs(xyz, cl.labels, num_slots(config))
     one = map_leaves(lambda t: t[None], (seg, cl, runs))
     return frame_of(_hull_stage(*one, config), 0)
 

@@ -54,18 +54,28 @@ _I32 = torch.int32
 
 # two-tier outline extraction: small clusters take the device convex-hull
 # path, large ones the host concave path
-# (ref: src/polygon_simplification.cpp:98)
+# (ref: src/polygon_simplification.cpp:98); the large slots are
+# PipelineConfig's large_cluster_slots
 SMALL_P = 32          # padded points per small-cluster slot (device hulls)
 SMALL_C = 1024        # small-cluster slots
-LARGE_C = 512         # large-cluster (host concave) slots
-NUM_SLOTS = SMALL_C + LARGE_C   # cluster-id table size
+
+
+def num_slots(config: EngineConfig) -> int:
+    """The cluster-id table's size: the small and the large outline
+    slots."""
+    return SMALL_C + config.pipeline.large_cluster_slots
+
 
 # The stamped step's stats row (int64, one a frame): a device clock stamp
 # (ns) at each boundary of the four STAGES (stamps 0-4: before
 # segmentation, clustering, label runs + hulls, the payload, and after
-# it), then the COUNTERS.
+# it), then the COUNTERS: ops/stixel.py's (the tier tables' pairs, those
+# that link, the union-find edges; the obstacle points before the
+# buffer's clamp beside max_obstacle_points; the fullest tier's pairs
+# beside its slots), then the clusters that need the fuller kind of
+# outline slot beside its slot count.
 STAGES = ("step.segment", "step.cluster", "step.outline", "step.pack")
-COUNTERS = ("tier_pairs", "tier_links", "uf_edges")
+COUNTERS = _stixel.COUNTERS + ("outline_clusters", "outline_slots")
 STATS_WORDS = len(STAGES) + 1 + len(COUNTERS)
 
 
@@ -80,7 +90,7 @@ class FrameResult(NamedTuple):
     small_counts: torch.Tensor    # (SMALL_C,)
     n_small: torch.Tensor         # ()
     small_hulls: PolygonBatch     # device convex hulls of small clusters
-    large_ids: torch.Tensor       # (LARGE_C,) cluster id per large slot
+    large_ids: torch.Tensor       # (large_cluster_slots,) cluster ids
     n_large: torch.Tensor         # ()
     hull_overflow: torch.Tensor   # () slot-capacity violations
 
@@ -123,20 +133,20 @@ def device_frame_step_batched(xyzs: torch.Tensor, masks: torch.Tensor,
     takes stamps 0-2 and, on the stixel backend, the COUNTERS.
     """
     if config.pipeline.clustering_backend == "stixel":
+        counts = None if stats is None else stats[:, len(STAGES) + 1:]
         _stamp(stats, 0)
         ss = gpf_segment_sorted(xyzs, masks, config.segmentation)
         obstacle_s = ss.valid & (ss.labels == SEG_OBSTACLE)
         _stamp(stats, 1)
         fused = _stixel.cluster_fused(
             ss.xyz, obstacle_s, ss.valid, ss.orig, ss.labels,
-            config.clustering, config.pipeline,
-            None if stats is None else stats[:, len(STAGES) + 1:])
+            config.clustering, config.pipeline, counts)
         seg = SegmentationResult(fused.seg_labels, ss.planes, ss.plane_valid)
         _stamp(stats, 2)
         runs = label_runs_presorted(
             fused.sorted_xyz, fused.sorted_label, fused.sorted_orig,
-            NUM_SLOTS, orig_bound=xyzs.shape[1])
-        return _hull_stage(seg, fused.result, runs, config)
+            num_slots(config), orig_bound=xyzs.shape[1])
+        return _hull_stage(seg, fused.result, runs, config, counts)
     _stamp(stats, 0)
     seg = gpf_segment(xyzs, masks, config.segmentation)
     obstacle = masks & (seg.labels == SEG_OBSTACLE)
@@ -144,7 +154,7 @@ def device_frame_step_batched(xyzs: torch.Tensor, masks: torch.Tensor,
     cl = _cellgraph.cluster(xyzs, obstacle, config.clustering,
                             config.pipeline)
     _stamp(stats, 2)
-    runs = label_runs(xyzs, cl.labels, NUM_SLOTS)
+    runs = label_runs(xyzs, cl.labels, num_slots(config))
     return _hull_stage(seg, cl, runs, config)
 
 
@@ -157,13 +167,17 @@ def device_frame_step(xyz: torch.Tensor, mask: torch.Tensor,
 
 
 def _hull_stage(seg: SegmentationResult, cl: ClusteringResult,
-                runs: LabelRuns, config: EngineConfig) -> FrameResult:
+                runs: LabelRuns, config: EngineConfig,
+                counts: Optional[torch.Tensor] = None) -> FrameResult:
+    """Outline slots and the small clusters' device hulls. `counts`, an
+    int64 (B, len(COUNTERS)) view or None, takes the outline counters."""
+    sc, lc = SMALL_C, config.pipeline.large_cluster_slots
     # device convex-hull path only handles up to SMALL_P points per cluster
     small_cut = min(config.polygonization.small_cluster_size, SMALL_P + 1)
     present = runs.counts > 0
     is_small = present & (runs.counts < small_cut)
-    small_idx, n_small, ovf_s = compact_mask(is_small, SMALL_C)
-    small_act = torch.arange(SMALL_C, dtype=_I32,
+    small_idx, n_small, ovf_s = compact_mask(is_small, sc)
+    small_act = torch.arange(sc, dtype=_I32,
                              device=small_idx.device) < n_small[:, None]
     s_starts = torch.where(small_act,
                            runs.starts.gather(1, small_idx.long()), 0)
@@ -173,8 +187,14 @@ def _hull_stage(seg: SegmentationResult, cl: ClusteringResult,
     small_hulls = convex_hulls_batched(
         small_pts[..., :2], s_counts, min(SMALL_P, small_cut + 1))
 
-    large_idx, n_large, ovf_l = compact_mask(present & ~is_small, LARGE_C)
+    large_idx, n_large, ovf_l = compact_mask(present & ~is_small, lc)
     hull_overflow = runs.overflow + ovf_s + ovf_l
+    if counts is not None:
+        # the kind of slot its clusters fill the more (large on a tie)
+        need_s, need_l = (n_small + ovf_s).long(), (n_large + ovf_l).long()
+        large = need_l * sc >= need_s * lc
+        counts[:, len(_stixel.COUNTERS)] = torch.where(large, need_l, need_s)
+        counts[:, len(_stixel.COUNTERS) + 1] = torch.where(large, lc, sc)
     return FrameResult(seg, cl, runs, small_idx, s_counts, n_small,
                        small_hulls, large_idx, n_large, hull_overflow)
 
@@ -351,7 +371,8 @@ def _payload_dims(config: EngineConfig):
             else config.pipeline.max_points)
     lp = min(config.pipeline.payload_large_points, rows)
     return (config.pipeline.max_points, config.pipeline.max_obstacle_points,
-            NUM_SLOTS, SMALL_C, LARGE_C, p_out, lp)
+            num_slots(config), SMALL_C, config.pipeline.large_cluster_slots,
+            p_out, lp)
 
 
 def _quant(v, origin, scale):

@@ -10,21 +10,43 @@ the frames of every capacity-bound quantity, so the PipelineConfig caps
 and tier tables can be sized: obstacle points, cells, supernodes,
 columns, column pairs, supernode pairs, edges, the live edges left after
 one hook round (what enters the connected-components fixpoint), the
-tier occupancies and the expansion-band counts, beside the overflow and
-the cluster count. Prints a line every 50 frames and the maxima; returns
-the maxima. Runs on the card unless ``--device`` names another (it
-raises without one).
+tier occupancies and the expansion-band counts, beside the overflow, the
+cluster count and the clustered points (what the packed payload
+carries). Prints a line every 50 frames and the maxima; returns the
+maxima. Runs on the card unless ``--device`` names another (it raises
+without one).
+
+``measure`` takes any frames and engine configuration, ``widened`` an
+engine whose capacities no quantity is clipped by, and ``cap_table``
+sets each maximum beside its cap and 1.2 times it, rounded up to a
+multiple of 32 (the JAX package's sizing rule): a benchmark
+configuration is sized from its own sweeps with them
+(``lidarbench/size_caps.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG
+from ..ops.stixel import (_CHUNK_PAIRS_INTRA, _CHUNK_PAIRS_SNP,
+                          _SN_PAIR_TIER_SLOTS)
 from ._common import resolve_device
+
+# each capacity-bound quantity's cap: a PipelineConfig field (an entry of
+# it for a tuple), or a constant of the step
+CAPS = {"n_obst": "max_obstacle_points", "n_cells": "max_cells",
+        "n_sn": "max_supernodes", "n_cols": "max_columns",
+        "n_cpairs": "max_column_pairs", "n_snp": "max_sn_pairs",
+        "n_edges": "max_edges", "n_live": "max_live_edges",
+        "tiers1": "intra_tier_slots", "tiers2": _SN_PAIR_TIER_SLOTS,
+        "n_cls": "expansion_band_caps", "n_clustered": "payload_large_points",
+        "num": "large_cluster_slots"}
+_CHUNKED = {"tiers1": _CHUNK_PAIRS_INTRA, "tiers2": _CHUNK_PAIRS_SNP}
 
 
 def _live_edges(dbg, s_cap: int) -> torch.Tensor:
@@ -46,15 +68,26 @@ def _live_edges(dbg, s_cap: int) -> torch.Tensor:
 
 def frame_stats(xyz: torch.Tensor, mask: torch.Tensor, cfg) -> dict:
     """One padded frame's capacity-bound quantities (numpy values), its
-    obstacles from the frame's own segmentation."""
-    from ..ops.segmentation import gpf_segment
+    obstacles from the frame's own segmentation, and its clustered
+    points. The points are clustered in the order the step clusters
+    them (segmentation's sorted order, as ``cluster_fused`` takes them):
+    which pairs the exact tests see depends on each cell's first point."""
+    from ..ops.segmentation import gpf_segment_sorted
     from ..types import SEG_OBSTACLE
-    seg = gpf_segment(xyz, mask, cfg.segmentation)
-    return cluster_stats(xyz, mask & (seg.labels == SEG_OBSTACLE), cfg)
+    ss = gpf_segment_sorted(xyz, mask, cfg.segmentation)
+    out, res = _cluster_stats(ss.xyz, ss.valid & (ss.labels == SEG_OBSTACLE),
+                              cfg)
+    out["n_clustered"] = (res.labels >= 0).sum(dtype=torch.int32).numpy(
+        force=True)
+    return out
 
 
 def cluster_stats(xyz: torch.Tensor, obstacle: torch.Tensor, cfg) -> dict:
     """The capacity-bound quantities of clustering `obstacle`'s points."""
+    return _cluster_stats(xyz, obstacle, cfg)[0]
+
+
+def _cluster_stats(xyz, obstacle, cfg):
     from ..ops import stixel as sx
     res, dbg = sx.cluster_debug(xyz, obstacle, cfg.clustering, cfg.pipeline)
     out = dict(
@@ -72,7 +105,69 @@ def cluster_stats(xyz: torch.Tensor, obstacle: torch.Tensor, cfg) -> dict:
         overflow=res.overflow,
         num=res.num_clusters,
     )
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    return {k: v.cpu().numpy() for k, v in out.items()}, res
+
+
+def _sized(n: int) -> int:
+    """1.2 times n, rounded up to a multiple of 32."""
+    return -(-(n * 12) // (10 * 32)) * 32
+
+
+def cap_table(maxima: dict, cfg) -> list:
+    """(quantity, max, cfg's cap, 1.2x max rounded up to 32) rows; tier
+    tables and bands a row each entry, their chunked-pair counts against
+    the step's constant."""
+    rows = []
+    for k, field in CAPS.items():
+        if k not in maxima:
+            continue
+        cap = getattr(cfg.pipeline, field) if isinstance(field, str) else field
+        vals = np.atleast_1d(maxima[k]).tolist()
+        if k == "num":
+            # every cluster may need a host outline slot
+            rows.append((k, vals[0], cap, _sized(vals[0])))
+            continue
+        caps = list(cap) if isinstance(cap, tuple) else [cap]
+        if k in _CHUNKED:
+            caps.append(_CHUNKED[k])
+        for i, (v, c) in enumerate(zip(vals, caps)):
+            name = k if len(caps) == 1 else f"{k}[{i}]"
+            rows.append((name, int(v), int(c), _sized(int(v))))
+    return rows
+
+
+def widened(cfg, factor: float):
+    """cfg with every capacity of CAPS `factor` times its own (the
+    obstacle buffer at most the padded frame), so that no quantity is
+    clipped by the cap it sizes."""
+    pcfg = cfg.pipeline
+    wide = {}
+    for field in CAPS.values():
+        if isinstance(field, str):
+            v = getattr(pcfg, field)
+            wide[field] = (tuple(int(x * factor) for x in v)
+                           if isinstance(v, tuple) else int(v * factor))
+    wide["max_obstacle_points"] = min(wide["max_obstacle_points"],
+                                      pcfg.max_points)
+    return cfg.replace(pipeline=dataclasses.replace(pcfg, **wide))
+
+
+def measure(frames, cfg, dev) -> dict:
+    """The maxima of frame_stats over `frames`, (name, xyz) pairs, each
+    padded to cfg's max_points on `dev`; a line every 50 frames."""
+    from ..io.synthetic import pad_frame
+    maxima: dict = {}
+    for i, (_, xyz) in enumerate(frames):
+        x, m = pad_frame(xyz, cfg.pipeline.max_points)
+        out = frame_stats(torch.from_numpy(x).to(dev),
+                          torch.from_numpy(m).to(dev), cfg)
+        for k, v in out.items():
+            maxima[k] = np.maximum(maxima.get(k, v), v)
+        if i % 50 == 0:
+            print(f"frame {i}: " + " ".join(
+                f"{k}={v}" for k, v in out.items() if v.ndim == 0),
+                flush=True)
+    return maxima
 
 
 def main(argv=None) -> dict:
@@ -82,23 +177,12 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     from ..io.dataset import list_frames, load_frame
-    from ..io.synthetic import pad_frame
 
-    cfg = DEFAULT_CONFIG
     dev = resolve_device(args.device)
-    frames = list_frames(args.data_dir) if args.data_dir else list_frames()
-    maxima: dict = {}
-    for i, path in enumerate(frames):
-        x, m = pad_frame(load_frame(path)[0], cfg.pipeline.max_points)
-        out = frame_stats(torch.from_numpy(x).to(dev),
-                          torch.from_numpy(m).to(dev), cfg)
-        for k, v in out.items():
-            maxima[k] = np.maximum(maxima.get(k, v), v)
-        if i % 50 == 0:
-            print(f"frame {i}: " + " ".join(
-                f"{k}={v}" for k, v in out.items() if v.ndim == 0),
-                flush=True)
-    print(f"\n=== maxima over {len(frames)} frames ({dev.type}) ===")
+    paths = list_frames(args.data_dir) if args.data_dir else list_frames()
+    maxima = measure(((p, load_frame(p)[0]) for p in paths), DEFAULT_CONFIG,
+                     dev)
+    print(f"\n=== maxima over {len(paths)} frames ({dev.type}) ===")
     for k, v in maxima.items():
         print(f"{k:12s} {v}")
     return maxima

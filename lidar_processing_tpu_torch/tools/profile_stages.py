@@ -123,7 +123,7 @@ def main(argv=None) -> dict:
     def hull(ss, fu, n):
         seg = SegmentationResult(fu.seg_labels, ss.planes, ss.plane_valid)
         runs = pl.label_runs_presorted(fu.sorted_xyz, fu.sorted_label,
-                                       fu.sorted_orig, pl.NUM_SLOTS,
+                                       fu.sorted_orig, pl.num_slots(cfg),
                                        orig_bound=n)
         return pl._hull_stage(seg, fu.result, runs, cfg)
 

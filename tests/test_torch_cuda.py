@@ -42,6 +42,26 @@ CFG = DEFAULT_CONFIG.replace(pipeline=dataclasses.replace(
     max_column_pairs=8192, max_sn_pairs=8192))
 
 
+def _pipeline(name: str):
+    """The PipelineConfig of a benchmark configuration file."""
+    import json
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(root, "lidarbench", "configs", f"{name}.json")
+    with open(path) as f:
+        fields = json.load(f)["engine"].get("pipeline", {})
+    return dataclasses.replace(DEFAULT_CONFIG.pipeline, **fields)
+
+
+# the tier tables the step runs at, each with its obstacle buffer's size:
+# DEFAULT_CONFIG's and the Waymo top LiDAR configuration's
+TIER_TABLES = {
+    f"{cfg}-{table}": (tiers, pcfg.max_obstacle_points)
+    for cfg, pcfg in (("default", DEFAULT_CONFIG.pipeline),
+                      ("waymo", _pipeline("waymo-top64-host-outlines")))
+    for table, tiers in zip(("intra", "snp"), tsx.tier_tables(pcfg))}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -56,7 +76,8 @@ def _ulp(a, b):
 
 def test_min_d2_kernel_matches_twin_at_tier_shapes(cuda):
     rng = np.random.default_rng(0)
-    for u_cap, v_cap, slots in tsx._TIERS_INTRA + tsx._TIERS_SNP:
+    shapes = {t for tiers, _ in TIER_TABLES.values() for t in tiers}
+    for u_cap, v_cap, slots in sorted(shapes):
         wu, wv = u_cap + 8, v_cap + 32
         planes = [rng.uniform(-30, 30, (slots, w)).astype(np.float32)
                   for w in (wu, wu, wu, wv, wv, wv)]
@@ -174,14 +195,14 @@ def test_staged_uf_rejects_a_misaligned_edge_view(cuda):
     assert torch.equal(got, tuf.cc_labels_ref(e[1:], e[:1024], ne, 64))
 
 
-@pytest.mark.parametrize("table", ["intra", "snp"])
+@pytest.mark.parametrize("table", sorted(TIER_TABLES))
 def test_tier_min_d2_kernel_matches_twin(cuda, table):
     """Bit for bit at the shipped tier tables' full slot counts, on every
     crafted descriptor set (overflowing tiers and a clamped slice start,
     empty sides, counts past the caps, runs ending at and running past the
-    last point of a full-size buffer)."""
-    tiers = tsx._TIERS_INTRA if table == "intra" else tsx._TIERS_SNP
-    n = DEFAULT_CONFIG.pipeline.max_obstacle_points
+    last point of a full-size buffer), each table on its configuration's
+    obstacle buffer."""
+    tiers, n = TIER_TABLES[table]
     for name, *case in tier_cases(tiers, n=n, seed=len(table)):
         args = [torch.from_numpy(a).to(cuda) for a in case]
         before = ttm.tier_min_d2.launches
@@ -438,8 +459,7 @@ def test_batched_kernels_match_single_launches(cuda):
     twin, bit for bit: tier_min_d2 on the shipped supernode table's four
     crafted sets (a cloud of its own for each frame), union_find on the
     eight contract graphs."""
-    tiers = tsx._TIERS_SNP
-    n = DEFAULT_CONFIG.pipeline.max_obstacle_points
+    tiers, n = TIER_TABLES["default-snp"]
     cases = [(xyz + np.float32(b), *rest) for b, (_, xyz, *rest)
              in enumerate(tier_cases(tiers, n=n, seed=7))]
     batch = [torch.from_numpy(np.stack(a)).to(cuda) for a in zip(*cases)]

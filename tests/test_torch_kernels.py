@@ -53,7 +53,7 @@ def _ulp(a, b):
 
 
 def _tier_widths():
-    return [(u + 8, v + 32) for u, v, _ in tsx._TIERS_INTRA + tsx._TIERS_SNP]
+    return [(u + 8, v + 32) for u, v in tsx._TIER_SHAPES]
 
 
 @pytest.mark.parametrize("p,wu,wv", [(24, 16, 64), (9, 104, 320),

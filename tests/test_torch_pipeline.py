@@ -61,12 +61,31 @@ def _assert_outputs_equal(got, want):
         np.testing.assert_array_equal(g, w)
 
 
+def _jax_fields(cfg):
+    """The config tree without the port's own pipeline capacities."""
+    tree = dataclasses.asdict(cfg)
+    for name in tconfig.PORT_PIPELINE_FIELDS:
+        tree["pipeline"].pop(name, None)
+    return tree
+
+
 def test_config_copy_and_interop():
-    assert (dataclasses.asdict(tconfig.DEFAULT_CONFIG)
+    """Every field of the JAX package's config tree, with its default;
+    the port's own capacities (module constants there) only add to
+    PipelineConfig, and interop fills them with their defaults."""
+    assert (_jax_fields(tconfig.DEFAULT_CONFIG)
             == dataclasses.asdict(jconfig.DEFAULT_CONFIG))
     assert ([f.name for f in dataclasses.fields(tconfig.EngineConfig)]
             == [f.name for f in dataclasses.fields(jconfig.EngineConfig)])
-    assert dataclasses.asdict(TCFG) == dataclasses.asdict(JCFG)
+    port = set(tconfig.PORT_PIPELINE_FIELDS)
+    jfields = {f.name for f in dataclasses.fields(jconfig.PipelineConfig)}
+    assert not port & jfields
+    assert ({f.name for f in dataclasses.fields(tconfig.PipelineConfig)}
+            == jfields | port)
+    assert _jax_fields(TCFG) == dataclasses.asdict(JCFG)
+    assert all(getattr(TCFG.pipeline, f)
+               == getattr(tconfig.DEFAULT_CONFIG.pipeline, f)
+               for f in tconfig.PORT_PIPELINE_FIELDS)
     assert isinstance(TCFG, tconfig.EngineConfig)
 
 

@@ -32,7 +32,9 @@ from lidar_processing_tpu import config as jconfig
 from lidar_processing_tpu.ops import stixel as jsx
 from lidar_processing_tpu.parallel import frame_spatial as jfs
 from lidar_processing_tpu.parallel import spatial as jsp
-from lidar_processing_tpu_torch.config import DEFAULT_CONFIG, SpatialConfig
+from lidar_processing_tpu_torch.config import (DEFAULT_CONFIG,
+                                                PORT_PIPELINE_FIELDS,
+                                                SpatialConfig)
 from lidar_processing_tpu_torch.io.synthetic import pad_frame, street_scene
 from lidar_processing_tpu_torch.ops import stixel as sx
 from lidar_processing_tpu_torch.ops.segmentation import gpf_segment
@@ -71,8 +73,11 @@ def _jax_mesh(shape=(8,), names=("space",)):
 
 
 def _jax_cfg(cfg):
-    """The JAX package's EngineConfig with the port config's fields."""
+    """The JAX package's EngineConfig with the port config's fields (the
+    port's own pipeline capacities are module constants there)."""
     tree = dataclasses.asdict(cfg)
+    for name in PORT_PIPELINE_FIELDS:
+        tree["pipeline"].pop(name)
     return jconfig.EngineConfig(**{
         f.name: type(getattr(jconfig.DEFAULT_CONFIG, f.name))(**tree[f.name])
         for f in dataclasses.fields(jconfig.EngineConfig)})

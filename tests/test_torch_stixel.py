@@ -20,6 +20,7 @@ from lidar_processing_tpu.config import DEFAULT_CONFIG
 from lidar_processing_tpu.ops import segmentation as jseg
 from lidar_processing_tpu.ops import stixel as jsx
 from lidar_processing_tpu.types import SEG_OBSTACLE
+from lidar_processing_tpu_torch.config import DEFAULT_CONFIG as TDEFAULT
 from lidar_processing_tpu_torch.interop import config_from_jax, to_torch
 from lidar_processing_tpu_torch.io.synthetic import pad_frame, street_scene
 from lidar_processing_tpu_torch.ops import stixel as tsx
@@ -149,7 +150,9 @@ def test_cluster_batched_equals_frames_alone(cfg_name):
 
 
 def test_tier_tables_are_the_jax_packages():
-    for attr in ("_TIERS_INTRA", "_TIERS_SNP", "_CHUNK", "_CHUNK_GRID",
+    assert (tsx.tier_tables(TDEFAULT.pipeline)
+            == (jsx._TIERS_INTRA, jsx._TIERS_SNP))
+    for attr in ("_TIERS_SNP", "_CHUNK", "_CHUNK_GRID",
                  "_CHUNK_PAIRS_INTRA", "_CHUNK_PAIRS_SNP", "_XY_OFFSETS",
                  "_GX", "_GY", "_GZ"):
         assert getattr(tsx, attr) == getattr(jsx, attr), attr

@@ -55,6 +55,36 @@ def test_measure_caps_main(frames, capsys):
             measure_caps.main(["--data-dir", str(frames)])
 
 
+def test_measure_caps_over_a_configurations_sweeps(frames):
+    """measure over frames given with an engine configuration, at
+    widened(cfg, 2): every capacity of CAPS doubled, the obstacle buffer
+    at most the padded frame; cap_table sets each maximum beside the
+    configuration's cap and 1.2x the maximum rounded up to 32, the tier
+    tables and bands a row each entry."""
+    from lidar_processing_tpu_torch.io.dataset import list_frames, load_frame
+    from lidar_processing_tpu_torch.ops import stixel as tsx
+    wide = measure_caps.widened(CFG, 2)
+    assert wide.pipeline.max_cells == 2 * CFG.pipeline.max_cells
+    assert wide.pipeline.max_obstacle_points == CFG.pipeline.max_points
+    assert wide.pipeline.intra_tier_slots == tuple(
+        2 * s for s in CFG.pipeline.intra_tier_slots)
+    assert wide.pipeline.large_cluster_slots == 1024
+    paths = list_frames(str(frames))
+    maxima = measure_caps.measure(((p, load_frame(p)[0]) for p in paths),
+                                  wide, torch.device("cpu"))
+    assert int(maxima["overflow"]) == 0
+    rows = {name: (v, cap, sized) for name, v, cap, sized
+            in measure_caps.cap_table(maxima, CFG)}
+    n_obst = int(maxima["n_obst"])
+    assert rows["n_obst"] == (n_obst, 4096, -(-n_obst * 12 // 320) * 32)
+    assert rows["tiers1[0]"][1] == CFG.pipeline.intra_tier_slots[0]
+    assert rows["tiers1[6]"][1] == tsx._CHUNK_PAIRS_INTRA
+    assert rows["tiers2[3]"][1] == tsx._TIERS_SNP[3][2]
+    assert rows["n_cls[3]"][1] == CFG.pipeline.expansion_band_caps[3]
+    assert rows["num"][1] == CFG.pipeline.large_cluster_slots
+    assert 0 < int(maxima["n_clustered"]) <= n_obst
+
+
 def test_tier_hist_main(frames, capsys):
     out = tier_hist.main(["--data-dir", str(frames), "--device", "cpu",
                           "--step", "1"])

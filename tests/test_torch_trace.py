@@ -168,28 +168,57 @@ def test_host_parts_sum_to_t_host_ms(closed):
         assert tspans.total_ms(m.spans, "host.counts") > 0.0
 
 
+def _fullest(tiers, slots):
+    """(pairs, slots) of the tier with the largest share of its slots,
+    the first on a tie (the step keeps the later table's on a tie: give
+    it first)."""
+    shares = [p / s for p, s in zip(tiers, slots)]
+    i = shares.index(max(shares))
+    return tiers[i], slots[i]
+
+
 def test_counters_equal_the_debug_path(closed):
     """tier_pairs, tier_links and uf_edges equal what cluster_debug counts
     on the same sweep and obstacle mask, in the fused path's sorted order:
     the tier tables' pair counts (without the chunked-pair column), the
-    tested pairs that link, and n_edges."""
-    stream, metrics, _ = closed
-    for m in metrics[:2]:
+    tested pairs that link, and n_edges; the obstacle points, the fullest
+    tier and the clusters of the fuller kind of outline slot, each beside
+    its cap, are the sweep's own."""
+    stream, metrics, outs = closed
+    pcfg = CFG.pipeline
+    for m, out in zip(metrics[:2], outs):
         x, mask = stream.xyz[m.frame_id], stream.mask[m.frame_id]
         ss = gpf_segment_sorted(x, mask, CFG.segmentation)
-        _, dbg = tsx.cluster_debug(ss.xyz, ss.valid & (
-            ss.labels == SEG_OBSTACLE), CFG.clustering, CFG.pipeline)
+        obstacle = ss.valid & (ss.labels == SEG_OBSTACLE)
+        _, dbg = tsx.cluster_debug(ss.xyz, obstacle, CFG.clustering, pcfg)
         assert int(dbg["tiers1"][-1]) == int(dbg["tiers2"][-1]) == 0
         ambiguous = ((torch.arange(dbg["pu"].shape[-1]) < dbg["n_snp"])
                      & ~dbg["impossible"] & ~dbg["certain"])
         links = ((dbg["link1"] & dbg["intra_tests1"]).sum()
                  + (dbg["link2"] & dbg["intra_tests2"]).sum()
                  + (dbg["snp_edge"] & ambiguous).sum())
+        intra, snp = tsx.tier_tables(pcfg)
+        peak = _fullest(dbg["tiers2"][:-1].tolist()
+                        + dbg["tiers1"][:-1].tolist(),
+                        [s for *_, s in snp + intra])
+        sizes = np.bincount(out.cluster_labels[out.cluster_labels >= 0])
+        small = int((sizes < CFG.polygonization.small_cluster_size).sum())
+        large = len(sizes) - small
+        outline = ((large, pcfg.large_cluster_slots)
+                   if large * tpipe.SMALL_C
+                   >= small * pcfg.large_cluster_slots
+                   else (small, tpipe.SMALL_C))
         assert m.counters == {
             "tier_pairs": int(dbg["tiers1"][:-1].sum()
                               + dbg["tiers2"][:-1].sum()),
-            "tier_links": int(links), "uf_edges": int(dbg["n_edges"])}
+            "tier_links": int(links), "uf_edges": int(dbg["n_edges"]),
+            "obstacle_points": int(obstacle.sum()),
+            "obstacle_slots": pcfg.max_obstacle_points,
+            "tier_peak_pairs": peak[0], "tier_peak_slots": peak[1],
+            "outline_clusters": outline[0], "outline_slots": outline[1]}
         assert 0 < m.counters["tier_links"] <= m.counters["tier_pairs"]
+        assert 0 < m.counters["tier_peak_pairs"]
+        assert 0 < m.counters["outline_clusters"]
 
 
 def test_stamped_step_keeps_the_payload(closed):
